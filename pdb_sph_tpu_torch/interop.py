@@ -1,0 +1,50 @@
+"""State and config across the two packages, through numpy.
+
+The JAX package's arrays reach this module as numpy arrays, so the port
+never imports jax; the parity tests use these helpers so that both packages
+start from the very same particles and constants.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+from .state import SimState
+
+
+def state_from_numpy(x, v, ids, step, device) -> SimState:
+    """(n,3) x and v, (n,) ids and a scalar step -> SimState on `device`
+    (copies: the state never shares memory with the arrays)."""
+    return SimState(
+        x=torch.tensor(np.asarray(x, np.float32), device=device),
+        v=torch.tensor(np.asarray(v, np.float32), device=device),
+        ids=torch.tensor(np.asarray(ids, np.int32), device=device),
+        step=torch.tensor(np.asarray(step, np.int32), device=device),
+    )
+
+
+def state_to_numpy(state: SimState):
+    """SimState -> (x, v, ids, step) numpy arrays on the host."""
+    return tuple(t.detach().cpu().numpy() for t in state)
+
+
+def config_from_fields(fields: dict) -> SimConfig:
+    """The port's SimConfig from another SimConfig's fields.
+
+    `fields` is e.g. `dataclasses.asdict(jax_cfg)`; its `geom` (the TPU
+    kernel geometry) is dropped and the port's default geometry is used.
+    Unknown fields raise, so a field added to one package only is caught.
+    """
+    names = {f.name for f in dataclasses.fields(SimConfig)} - {"geom"}
+    kw = {k: v for k, v in fields.items() if k != "geom"}
+    unknown = set(kw) - names
+    if unknown:
+        raise ValueError(f"fields unknown to the port's SimConfig: "
+                         f"{sorted(unknown)}")
+    cfg = SimConfig(**kw)
+    cfg.validate()
+    return cfg

@@ -1,0 +1,1 @@
+"""models of the PyTorch port (mirrors pdb_sph_tpu/models)."""

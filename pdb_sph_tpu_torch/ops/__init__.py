@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (mirrors pdb_sph_tpu/ops)."""

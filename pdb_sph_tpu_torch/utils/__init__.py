@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (mirrors pdb_sph_tpu/utils)."""

@@ -1,0 +1,109 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+`load_kernels()` compiles every `csrc/*.cu` of the package into one shared
+library with a plain C interface, at first use, into `build/kernels/` under
+the repository root (listed in `.gitignore`), and loads it. The library's
+name carries a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses the last build. A missing nvcc or a failed build
+raises; nothing falls back and nothing is fetched. Only the CUDA toolkit is
+read from outside the repository.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+# sm_90a: Hopper with its architecture-specific instructions. No
+# --use_fast_math: the pair math keeps IEEE division and the accurate rsqrtf.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every launcher: pointers and the stream as void*, so ctypes
+# never truncates them to a 32-bit int
+SIGNATURES = {
+    "launch_density_lambda": (_P, _P, _P, _I, _I, _I, _I,
+                              _F, _F, _F, _F, _F, _F, _F, _P),
+    "launch_project": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when an existing build was reused
+    log: str              # nvcc's output (ptxas register/smem report)
+
+    def check(self, code: int, what: str) -> None:
+        """Raise if a launcher returned a CUDA error."""
+        if code != 0:
+            msg = self.lib.pbf_error_string(code).decode()
+            raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH or under $CUDA_HOME/bin (default /usr/local/cuda)."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.pathsep.join([os.environ.get("PATH", ""),
+                            os.path.join(cuda_home, "bin")])
+    nvcc = shutil.which("nvcc", path=path)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found on PATH or in $CUDA_HOME/bin: the CUDA kernels "
+            "cannot be built, and the port does not fall back to plain torch "
+            "on a CUDA device")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def load_kernels() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process."""
+    out = BUILD_DIR / f"pbf_kernels_{_source_hash()}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pbf_error_string.argtypes = (ctypes.c_int,)
+    lib.pbf_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib=lib, path=out, build_seconds=seconds, log=log)
