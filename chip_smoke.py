@@ -15,9 +15,19 @@ exits non-zero:
                with errors and times;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
-               settle chunk: steps/s, stats, launch counts, stage breakdown.
+               settle chunk: steps/s, stats, launch counts, stage breakdown;
+  6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
+               steps must come to rest (mean dense rho within 5 % of rho0,
+               max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN);
+  7. cli     — the runner (pdb_sph_tpu_torch.cli.main) in-process on the
+               card: the 80k dam break with metrics, frames, a GIF and a
+               checkpoint; a resume of it; the 80k blowup.
 
-The line before the last is a JSON object with each kernel's launches,
+Every path (phases 5, 6 and 7's runs) is driven with the kernel launch
+counts set to 0 just before it and read just after.
+
+The line before the last is a JSON object with each kernel's launches
+(the solve kernels' from phase 5, the rho output's from phase 7's runs),
 error and times; the last line is {"ok": true, "device": {...}}. Without a
 card, or without the package beside it, the script exits non-zero and
 prints no result.
@@ -27,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,15 +53,25 @@ REPS = 20
 # kernel vs plain: sums run in another order, with FMA contraction
 LAMBDA_RTOL, LAMBDA_ATOL = 1e-4, 1e-8
 POS_ATOL = 1e-5
+# rho is a sum of positive terms, each at least the self term: relative
+RHO_RTOL = 1e-5
+SETTLE_N, SETTLE_GATE_STEPS = 8192, 2000
+# the runner's runs: 80k dam break, its resume, the 80k blowup
+CLI_STEPS, CLI_RESUME_STEPS, CLI_EVERY, CLI_RENDER = 240, 40, 20, 120
 # window vs dense over 3 steps (tests/test_pallas.py:45-55)
 ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-5
 
 CU_SOURCE = "pdb_sph_tpu_torch/csrc/pbf_window.cu"
 KERNELS = {  # wrapper counter -> (kernel name, the TPU kernel it replaces)
-    "density_lambda": ("density_lambda_kernel",
+    "density_lambda": ("density_lambda_kernel<kLambda>",
                        "pdb_sph_tpu/ops/pallas_pbf.py:424"),
     "project": ("project_kernel", "pdb_sph_tpu/ops/pallas_pbf.py:477"),
+    # K1's body with the rho output: the diagnostic density, which the JAX
+    # package computes in plain XLA (no pallas_call) in diagnostics_fn
+    "density_rho": ("density_lambda_kernel<kRho>",
+                    "pdb_sph_tpu/core/step.py:130"),
 }
+SOLVE_KERNELS = ("density_lambda", "project")
 
 
 def phase_device() -> str:
@@ -84,16 +105,21 @@ def phase_build() -> None:
 
 def _sorted_p4(cfg, x: torch.Tensor):
     """Cell-sort positions and build the plan, as the step does."""
+    from pdb_sph_tpu_torch.core.step import sort_cells
     from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
 
     n = x.shape[0]
-    n_pad = cuda_pbf.pad_to_chunks(cfg, n)
-    cid = hashgrid.cell_ids(cfg, x)
-    cid_pad = torch.cat([cid, cid.new_full((n_pad - n,), cfg.num_nb_cells)])
-    sorted_cid, order = hashgrid.sort_by_cell(cfg, cid_pad)
-    p4 = torch.zeros((n_pad, 4), dtype=torch.float32, device=x.device)
-    p4[:n, :3] = x[order[:n]]
+    sorted_cid, order = sort_cells(cfg, hashgrid.cell_ids(cfg, x))
+    p4 = torch.zeros((sorted_cid.shape[0], 4), dtype=torch.float32,
+                     device=x.device)
+    p4[:n, :3] = x[order]
     return p4, cuda_pbf.build_plan(cfg, sorted_cid)
+
+
+def _candidates(plan) -> tuple[float, int]:
+    """(mean, max) candidates per own-chunk of a plan."""
+    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
+    return float(lens.float().mean()), int(lens.max())
 
 
 def phase_kernels(device, n: int = N_MAIN) -> dict:
@@ -123,6 +149,15 @@ def phase_kernels(device, n: int = N_MAIN) -> dict:
     pos_max = float(pos_err.max())
     move = float((p_r[:n, :3] - d_k[:n, :3]).abs().max())
 
+    # the diagnostic rho, through K1's body with the rho output
+    r_k = cuda_pbf.density_rho(cfg, p4, plan, n)
+    r_r = cuda_pbf.density_rho_ref(cfg, p4, plan, n)
+    rho_err = (r_k[:n, 3] - r_r[:n, 3]).abs()
+    rho_bad = int((rho_err > RHO_RTOL * r_r[:n, 3].abs()).sum())
+    rho_rel = float((rho_err / r_r[:n, 3].abs()).max())
+    if not torch.equal(r_k[:n, :3], p4[:n, :3]):
+        raise AssertionError("rho kernel changed the positions it carries")
+
     buf = torch.empty_like(p4)
     times = {
         "density_lambda": (
@@ -135,20 +170,28 @@ def phase_kernels(device, n: int = N_MAIN) -> dict:
                     REPS),
             cuda_ms(lambda: cuda_pbf.project_pass_ref(cfg, d_k, plan, n, buf),
                     REPS)),
+        "density_rho": (
+            cuda_ms(lambda: cuda_pbf.density_rho(cfg, p4, plan, n, buf),
+                    REPS),
+            cuda_ms(lambda: cuda_pbf.density_rho_ref(cfg, p4, plan, n, buf),
+                    REPS)),
     }
-    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
+    mean_c, max_c = _candidates(plan)
     print(f"[kernels] n={n} after {SETTLE_STEPS} steps; candidates/chunk "
-          f"mean {float(lens.float().mean()):.1f} max {int(lens.max())}; "
+          f"mean {mean_c:.1f} max {max_c}; "
           f"lambda max|err| {float(lam_err.max()):.3e} max rel "
           f"{lam_rel:.3e} (tol {LAMBDA_ATOL:g} + {LAMBDA_RTOL:g}|ref|, "
           f"{lam_bad} outside); positions max|err| {pos_max:.3e} (atol "
-          f"{POS_ATOL:g}; largest move {move:.3e})")
+          f"{POS_ATOL:g}; largest move {move:.3e}); rho max|err| "
+          f"{float(rho_err.max()):.3e} max rel {rho_rel:.3e} (rtol "
+          f"{RHO_RTOL:g}, {rho_bad} outside)")
     for name, (k_ms, r_ms) in times.items():
         print(f"[kernels] {KERNELS[name][0]}: kernel {k_ms:.4f} ms, plain "
               f"{r_ms:.4f} ms (median of {REPS}, CUDA events)")
-    if lam_bad or not pos_max <= POS_ATOL:
+    if lam_bad or not pos_max <= POS_ATOL or rho_bad:
         raise AssertionError("a kernel disagrees with its plain version")
-    errs = {"density_lambda": float(lam_err.max()), "project": pos_max}
+    errs = {"density_lambda": float(lam_err.max()), "project": pos_max,
+            "density_rho": float(rho_err.max())}
     return {k: (errs[k], *times[k]) for k in KERNELS}
 
 
@@ -231,7 +274,7 @@ def phase_main(device, card: str, n: int = N_MAIN,
     if not finite or escaped or stats.tolist() != [0, 0, 0] \
             or settle_stats.tolist() != [0, 0, 0]:
         raise AssertionError("main path state or stats are wrong")
-    if any(launches[k] != want for k in KERNELS):
+    if any(launches[k] != want for k in SOLVE_KERNELS):
         raise AssertionError(f"expected {want} launches of each kernel, "
                              f"got {launches}")
 
@@ -242,6 +285,129 @@ def phase_main(device, card: str, n: int = N_MAIN,
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {total:.4f}")
     return launches
+
+
+def phase_settle(device) -> None:
+    """The settle gate on the card: the precision check of the kernels."""
+    from pdb_sph_tpu_torch.core import settle
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    cuda_pbf.reset_launches()
+    r = settle.settle_check(device, n=SETTLE_N, steps=SETTLE_GATE_STEPS)
+    launches = dict(cuda_pbf.LAUNCHES)
+    for line in settle.format_result(r).splitlines():
+        print(f"[settle] {line}")
+    print(f"[settle] {SETTLE_GATE_STEPS / r['seconds']:.2f} steps/s; "
+          f"launches {launches}")
+    want = 3 * SETTLE_GATE_STEPS
+    if any(launches[k] != want for k in SOLVE_KERNELS):
+        raise AssertionError(f"expected {want} launches of each solve "
+                             f"kernel, got {launches}")
+    if not r["ok"]:
+        raise AssertionError("SETTLE CHECK: FAIL")
+
+
+def _cli_run(argv: list[str], metrics: str) -> tuple[list[dict], dict]:
+    """One in-process run of the runner; (its JSONL records, the kernel
+    launches it made). Raises unless it exits 0."""
+    from pdb_sph_tpu_torch import cli
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    cuda_pbf.reset_launches()
+    rc = cli.main(argv + ["--device", "cuda", "--metrics", metrics])
+    launches = dict(cuda_pbf.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli exited {rc}: {argv}")
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    if records[-1]["event"] != "done":
+        raise AssertionError(f"cli run did not finish: {records[-1]}")
+    prog = [r for r in records if r["event"] == "progress"]
+    if any(r["nan_detected"] or r["n_overflow"] or r["plan_overflow"]
+           for r in prog):
+        raise AssertionError("cli run reported NaN or overflow")
+    if any(r.get("n_escaped", 0) for r in prog):
+        raise AssertionError("cli run lost particles from the box")
+    diag = [r for r in prog if "mean_density" in r]
+    last = diag[-1] if diag else {}
+    chunk_rate = statistics.median(r["steps_per_sec"] for r in prog)
+    print(f"[cli] {' '.join(argv)}: rc 0, last step {prog[-1]['step']}, "
+          f"{records[-1]['particle_steps_per_sec']:.1f} particle-steps/s "
+          f"({records[-1]['steps_per_sec']:.2f} steps/s, "
+          f"{records[-1]['wall_seconds']:.3f} s, frames and GIF included; "
+          f"median chunk {chunk_rate:.2f} steps/s); {len(diag)} diagnostic "
+          f"records (last: mean rho {last.get('mean_density', 0):.1f}, max "
+          f"err {last.get('max_density_err', 0):.4f}, maxv "
+          f"{last.get('max_speed', 0):.4f}); launches {launches}")
+    for k in KERNELS:
+        if not launches[k]:
+            raise AssertionError(f"{k} was not launched in {argv}")
+    return records, launches
+
+
+def phase_cli(device, out_dir: str) -> int:
+    """The runner on the card; returns the rho kernel's launches."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.core.step import diagnostics_fn
+    from pdb_sph_tpu_torch.io import checkpoint
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ck, fr = os.path.join(out_dir, "dam.npz"), os.path.join(out_dir, "fr")
+    gif = os.path.join(out_dir, "dam.gif")
+    every = ["--metrics-every", str(CLI_EVERY)]
+    dam, l_dam = _cli_run(
+        ["--scene", "dam_break", "--n", str(N_MAIN), "--steps",
+         str(CLI_STEPS), "--chunk", str(CLI_EVERY), *every,
+         "--render-every", str(CLI_RENDER), "--width", "320", "--height",
+         "240", "--out", fr, "--gif", gif, "--checkpoint", ck],
+        os.path.join(out_dir, "dam.jsonl"))
+    n_diag = sum("mean_density" in r for r in dam)
+    pngs = sorted(os.listdir(fr))
+    want_png = [f"frame_{s:06d}.png" for s in range(0, CLI_STEPS + 1,
+                                                     CLI_RENDER)]
+    if n_diag != CLI_STEPS // CLI_EVERY or l_dam["density_rho"] != n_diag:
+        raise AssertionError(f"{n_diag} diagnostic records, "
+                             f"{l_dam['density_rho']} rho launches")
+    if pngs != want_png or not os.path.getsize(gif):
+        raise AssertionError(f"frames {pngs}, gif {gif}")
+
+    resumed, l_res = _cli_run(
+        ["--resume", ck, "--steps", str(CLI_RESUME_STEPS), *every],
+        os.path.join(out_dir, "resume.jsonl"))
+    if resumed[-2]["step"] != CLI_STEPS + CLI_RESUME_STEPS:
+        raise AssertionError(f"resume ended at step {resumed[-2]['step']}")
+
+    bl_ck = os.path.join(out_dir, "blowup.npz")
+    _, l_bl = _cli_run(
+        ["--scene", "blowup", "--n", str(N_MAIN), "--steps", str(CLI_STEPS),
+         *every, "--checkpoint", bl_ck],
+        os.path.join(out_dir, "blowup.jsonl"))
+    cfg0 = pbf.blowup_config(n=N_MAIN)
+    spawned = _candidates(_sorted_p4(
+        cfg0, pbf.spawn(cfg0, "blowup", seed=0, device=device).x)[1])
+    cfg, state = checkpoint.load(bl_ck, device)
+    final = _candidates(_sorted_p4(cfg, state.x)[1])
+    print(f"[cli] blowup n={N_MAIN}: candidates/chunk at spawn mean "
+          f"{spawned[0]:.1f} max {spawned[1]}; at step "
+          f"{int(state.step)} mean {final[0]:.1f} max {final[1]}")
+
+    # what one diagnostic record costs the runner: diagnostics_fn and the
+    # four host reads, on the settled 80k dam of the first run
+    cfg, state = checkpoint.load(ck, device)
+    secs = []
+    for _ in range(REPS + 2):
+        fence(device)
+        t0 = time.perf_counter()
+        d = diagnostics_fn(cfg, state)
+        _ = (float(d.mean_density), float(d.max_density_err),
+             float(d.max_speed), int(d.n_escaped))
+        secs.append(time.perf_counter() - t0)
+    print(f"[cli] one diagnostic record at n={cfg.n}: "
+          f"{1e3 * statistics.median(secs[2:]):.4f} ms (median of {REPS}, "
+          "host clock, reads included)")
+    return l_dam["density_rho"] + l_res["density_rho"] + l_bl["density_rho"]
 
 
 def main() -> int:
@@ -261,6 +427,10 @@ def main() -> int:
     kern = phase_kernels(device)
     phase_oracle(device)
     launches = phase_main(device, card)
+    phase_settle(device)
+    launches["density_rho"] = phase_cli(
+        device, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_cli"))
 
     report = [
         {"name": KERNELS[k][0], "route": "cuda", "source": CU_SOURCE,

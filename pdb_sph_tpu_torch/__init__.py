@@ -9,9 +9,9 @@ jax.
 
 from .config import SimConfig, default_config, blowup_config, SCENES
 from .geometry import KernelGeometry
-from .state import SimState, make_state
+from .state import SimState, StepDiagnostics, make_state
 from .models.scenes import spawn
-from .core.step import make_step, make_rollout
+from .core.step import diagnostics_fn, make_step, make_rollout
 
 __version__ = "0.1.0"
 
@@ -19,6 +19,7 @@ __all__ = [
     "SimConfig",
     "KernelGeometry",
     "SimState",
+    "StepDiagnostics",
     "SCENES",
     "default_config",
     "blowup_config",
@@ -26,4 +27,5 @@ __all__ = [
     "spawn",
     "make_step",
     "make_rollout",
+    "diagnostics_fn",
 ]

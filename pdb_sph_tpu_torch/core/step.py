@@ -11,6 +11,8 @@ One step of the `window` backend (the counterpart of the JAX package's
 
 `dense` runs the all-pairs oracle instead. As in the reference, the state
 comes back cell-sorted; `ids` carries each particle's spawn index.
+`diagnostics_fn` measures a state (density, speed, escapes, NaN) for the
+runner's metrics.
 
 A `Stepper` holds the config, the device and the two ping-pong buffers the
 solve reuses from step to step. A `Rollout` runs many steps as a Python
@@ -28,7 +30,8 @@ from ..config import SimConfig
 from ..ops import cuda_pbf, dense, hashgrid
 from ..ops.collide import finalize
 from ..ops.integrate import predict
-from ..state import SimState
+from ..ops.smoothing import f32
+from ..state import SimState, StepDiagnostics
 from ..utils.platform import resolve_device
 
 BACKENDS = ("window", "dense", "auto")
@@ -49,6 +52,18 @@ def _stats(overflow2: torch.Tensor, x: torch.Tensor,
     return torch.cat([overflow2, (~finite).to(torch.int32)[None]])
 
 
+def sort_cells(cfg: SimConfig, cid: torch.Tensor):
+    """(sorted_cid (n_pad,), order (n,) int64): the stable sort of n cell
+    ids padded to whole own-chunks. Padding takes the id num_nb_cells and
+    sorts after every real particle, so the first n entries of the order
+    are exactly the real particles."""
+    n = cid.shape[0]
+    n_pad = cuda_pbf.pad_to_chunks(cfg, n)
+    cid_pad = torch.cat([cid, cid.new_full((n_pad - n,), cfg.num_nb_cells)])
+    sorted_cid, order = hashgrid.sort_by_cell(cfg, cid_pad)
+    return sorted_cid, order[:n]
+
+
 def step_fn(cfg: SimConfig, backend: str, state: SimState,
             bufs: tuple[torch.Tensor, torch.Tensor] | None = None,
             with_stats: bool = False, mark: Mark | None = None):
@@ -67,17 +82,11 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
         out = SimState(x=x, v=v, ids=state.ids, step=state.step + 1)
         return (out, _stats(zero2, x, v)) if with_stats else out
 
-    n = state.x.shape[0]
     p, _ = predict(cfg, state.x, state.v)
     cid = hashgrid.cell_ids(cfg, p)
     mark("predict+cell_ids")
 
-    # padding sorts after every real particle, so the first n entries of
-    # the order are exactly the real particles
-    n_pad = cuda_pbf.pad_to_chunks(cfg, n)
-    cid_pad = torch.cat([cid, cid.new_full((n_pad - n,), cfg.num_nb_cells)])
-    sorted_cid, order = hashgrid.sort_by_cell(cfg, cid_pad)
-    order = order[:n]
+    sorted_cid, order = sort_cells(cfg, cid)
     p_s, last_s, ids_s = p[order], state.x[order], state.ids[order]
     mark("sort+gather")
 
@@ -93,6 +102,44 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
         overflow = torch.stack([zero2[0], plan.n_overflow])
         return out, _stats(overflow, x, v)
     return out
+
+
+def diagnostics_fn(cfg: SimConfig, state: SimState) -> StepDiagnostics:
+    """Observability of the current state (pdb_sph_tpu/core/step.py:130-176),
+    every field a 0-dim tensor on the state's device.
+
+    The JAX package measures rho in plain XLA over a cell table with a
+    capacity and masks the particles that table dropped. Here rho comes
+    from the density kernel's rho output over the window plan of the
+    state's own cell sort, which has no capacity: no particle is left out,
+    and n_overflow is 0. Only a particle with a non-finite position, whose
+    rho means nothing, is left out of the density fields. The sorted
+    positions and rho live in buffers of their own, so a Stepper's
+    ping-pong buffers are never touched.
+    """
+    x, n = state.x, state.x.shape[0]
+    sorted_cid, order = sort_cells(cfg, hashgrid.cell_ids(cfg, x))
+    plan = cuda_pbf.build_plan(cfg, sorted_cid)
+    p4 = torch.zeros((sorted_cid.shape[0], 4), dtype=torch.float32,
+                     device=x.device)
+    p4[:n, :3] = x[order]
+    rho = cuda_pbf.density_rho(cfg, p4, plan, n)[:n, 3]
+
+    measured = torch.isfinite(p4[:n, :3]).all(dim=1)
+    zero = torch.zeros_like(rho)
+    n_meas = measured.sum().clamp_min(1)
+    err = (rho * f32(cfg.inv_rho0) - 1.0).abs()
+    outside = (x < -0.25) | (x > cfg.wall + 0.25)
+    finite = torch.isfinite(x).all() & torch.isfinite(state.v).all()
+    return StepDiagnostics(
+        mean_density=torch.where(measured, rho, zero).sum() / n_meas,
+        max_density_err=torch.where(measured, err, zero).max(),
+        max_speed=torch.linalg.vector_norm(state.v, dim=1).max(),
+        n_escaped=outside.any(dim=1).sum().to(torch.int32),
+        n_overflow=torch.zeros((), dtype=torch.int32, device=x.device),
+        plan_overflow=plan.n_overflow,
+        nan_detected=~finite,
+    )
 
 
 class Stepper:

@@ -1,7 +1,9 @@
 // The two pair kernels of the PBF constraint solve, for Hopper (sm_90a).
 //
 // density_lambda_kernel replaces the TPU kernel `_density_kernel`
-// (pdb_sph_tpu/ops/pallas_pbf.py:424, launched by density_pass :608);
+// (pdb_sph_tpu/ops/pallas_pbf.py:424, launched by density_pass :608); its
+// kRho instantiation serves the diagnostic density of diagnostics_fn
+// (core/step.py), which the JAX package computes in plain XLA;
 // project_kernel replaces `_project_kernel` (:477, launched by
 // project_pass :633). Both stream what `_pair_loop` (:333) streamed.
 //
@@ -36,8 +38,17 @@ namespace {
 
 constexpr int kWindows = 9;
 
-// lambda_i for each own row; writes (x, y, z, lambda) into pout, so the
-// density -> project hand-over needs no separate lambda splice.
+// What a density pass writes into column 3 of each own row: lambda_i for
+// the solve, or rho_i alone for the diagnostics.
+enum class DensityOut { kLambda, kRho };
+
+// The density pass over the chunk's windows. kLambda writes
+// (x, y, z, lambda) into pout, so the density -> project hand-over needs no
+// separate lambda splice. kRho writes (x, y, z, rho) with
+// rho = poly6 * sum (h^2 - rd2)^3 and skips the gradient sum: the
+// diagnostic density of the current state, through the same stream as the
+// solve, with no capacity that could drop a particle.
+template <DensityOut kOut>
 __global__ void density_lambda_kernel(const float4* __restrict__ pin,
                                       float4* __restrict__ pout,
                                       const int* __restrict__ ranges, int n,
@@ -51,7 +62,7 @@ __global__ void density_lambda_kernel(const float4* __restrict__ pin,
   const int* win = ranges + blockIdx.x * (2 * kWindows);
 
   float s_rho = 0.f;  // sum (h^2 - rd2)^3
-  float s_g2 = 0.f;   // sum (h - r)^4 rd2
+  float s_g2 = 0.f;   // sum (h - r)^4 rd2 (kLambda only)
   for (int w = 0; w < kWindows; ++w) {
     const int start = win[2 * w];
     const int end = win[2 * w + 1];
@@ -70,12 +81,21 @@ __global__ void density_lambda_kernel(const float4* __restrict__ pin,
           const float dz = me.z - c.z;
           float rd2 = dx * dx + dy * dy + dz * dz;
           rd2 = fmaxf(fminf(rd2, h2), eps);
-          const float t = h2 - rd2;
-          const float u = h - rd2 * rsqrtf(rd2);
-          const float t2 = t * t;
-          const float u2 = u * u;
-          s_rho += t2 * t;
-          s_g2 += (u2 * u2) * rd2;
+          // Each output has a pair body of its own. The lambda body keeps
+          // this order (u before t2, both sums last): with the rho sum
+          // moved above the rsqrt, nvcc gave the kernel 31 registers in
+          // place of 34 and it ran ~11 % slower on an H100.
+          if constexpr (kOut == DensityOut::kLambda) {
+            const float t = h2 - rd2;
+            const float u = h - rd2 * rsqrtf(rd2);
+            const float t2 = t * t;
+            const float u2 = u * u;
+            s_rho += t2 * t;
+            s_g2 += (u2 * u2) * rd2;
+          } else {
+            const float t = h2 - rd2;
+            s_rho += (t * t) * t;
+          }
         }
       }
       __syncthreads();
@@ -83,9 +103,15 @@ __global__ void density_lambda_kernel(const float4* __restrict__ pin,
   }
   if (active) {
     const float rho = poly6 * s_rho;
-    const float g2 = l2 * s_g2;
-    const float c = rho * inv_rho0 - 1.f;
-    pout[i] = make_float4(me.x, me.y, me.z, -c / (g2 + relax_eps));
+    float out;
+    if constexpr (kOut == DensityOut::kLambda) {
+      const float g2 = l2 * s_g2;
+      const float c = rho * inv_rho0 - 1.f;
+      out = -c / (g2 + relax_eps);
+    } else {
+      out = rho;
+    }
+    pout[i] = make_float4(me.x, me.y, me.z, out);
   }
 }
 
@@ -147,11 +173,25 @@ extern "C" int launch_density_lambda(const void* pin, void* pout,
                                      float h, float h2, float eps, float poly6,
                                      float l2, float inv_rho0,
                                      float relax_eps, void* stream) {
-  density_lambda_kernel<<<num_chunks, own, tile * sizeof(float4),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pin), static_cast<float4*>(pout),
-      static_cast<const int*>(ranges), n, tile, h, h2, eps, poly6, l2,
-      inv_rho0, relax_eps);
+  density_lambda_kernel<DensityOut::kLambda>
+      <<<num_chunks, own, tile * sizeof(float4),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float4*>(pin), static_cast<float4*>(pout),
+          static_cast<const int*>(ranges), n, tile, h, h2, eps, poly6, l2,
+          inv_rho0, relax_eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_density_rho(const void* pin, void* pout,
+                                  const void* ranges, int n, int num_chunks,
+                                  int own, int tile, float h2, float eps,
+                                  float poly6, void* stream) {
+  density_lambda_kernel<DensityOut::kRho>
+      <<<num_chunks, own, tile * sizeof(float4),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float4*>(pin), static_cast<float4*>(pout),
+          static_cast<const int*>(ranges), n, tile, 0.f, h2, eps, poly6, 0.f,
+          0.f, 0.f);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,9 @@ Positions travel as one (n_pad, 4) float32 tensor with columns
 projected positions back: the two buffers ping-pong, and the JAX solve's
 lambda splice is the density pass's write.
 
+`density_rho` is the density pass's other output: rho alone, for the
+diagnostics (core/step.diagnostics_fn), through the same kernel body.
+
 Each pass is a wrapper that dispatches on the tensor's device: a CPU tensor
 goes to the plain torch version beside it (`*_ref`), a CUDA tensor launches
 the hand-written kernel in `csrc/pbf_window.cu`, or raises. `LAUNCHES`
@@ -36,7 +39,7 @@ NUM_WINDOWS = 9
 
 # Kernel launches per wrapper since the last reset_launches(); the plain
 # versions never count.
-LAUNCHES = {"density_lambda": 0, "project": 0}
+LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0}
 
 # (own rows x candidates) pair elements per batch of the plain versions
 _REF_PAIRS_PER_BATCH = 1 << 22
@@ -157,7 +160,10 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int):
     lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
     longest = max(int(lens.max()), 1)
     batch = max(1, _REF_PAIRS_PER_BATCH // (own * longest))
-    h2 = f32(cfg.h2)
+    # fmin/fmax, not clamp: a NaN rd2 becomes h^2 and adds nothing, as the
+    # kernels' fminf/fmaxf make it
+    h2 = torch.tensor(f32(cfg.h2), device=p4.device)
+    eps = torch.tensor(f32(EPS), device=p4.device)
     for c0 in range(0, min(num_chunks, -(-n // own)), batch):
         c1 = min(c0 + batch, num_chunks)
         mine = p4[c0 * own:c1 * own].view(c1 - c0, own, 4)
@@ -167,7 +173,7 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int):
         dy = mine[:, :, None, 1] - cand[:, None, :, 1]
         dz = mine[:, :, None, 2] - cand[:, None, :, 2]
         rd2 = dx * dx + dy * dy + dz * dz
-        rd2 = torch.clamp_min(torch.clamp_max(rd2, h2), f32(EPS))
+        rd2 = torch.fmax(torch.fmin(rd2, h2), eps)
         yield c0 * own, mine, dx, dy, dz, rd2, mask[:, None, :], cand
 
 
@@ -197,6 +203,21 @@ def density_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
         lam = smoothing.lambda_from_sums(
             cfg, f32(cfg.poly6_coeff) * s_rho, l2 * s_g2)
         _store(out, row0, torch.cat([mine[..., :3], lam[..., None]], -1), n)
+    return out
+
+
+def density_rho_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
+                    n: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch version of the density kernel's rho output: (n_pad, 4)
+    positions -> (n_pad, 4) with column 3 = rho for the first n rows."""
+    if out is None:
+        out = torch.zeros_like(p4)
+    h2 = f32(cfg.h2)
+    for row0, mine, _, _, _, rd2, mask, _ in _pair_blocks(cfg, p4, plan, n):
+        t = h2 - rd2
+        s_rho = torch.where(mask, (t * t) * t, torch.zeros_like(rd2)).sum(-1)
+        rho = f32(cfg.poly6_coeff) * s_rho
+        _store(out, row0, torch.cat([mine[..., :3], rho[..., None]], -1), n)
     return out
 
 
@@ -289,6 +310,20 @@ def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
               f32(cfg.inv_rho0), f32(cfg.relaxation_eps))
     return _launch("density_lambda", "launch_density_lambda", cfg, p4, plan,
                    n, out, consts)
+
+
+def density_rho(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, rho), first n rows.
+
+    The diagnostic density through K1's body (its kRho instantiation).
+    CPU: density_rho_ref. CUDA: density_lambda_kernel<kRho>, or raise."""
+    _check(cfg, p4, plan, n, out)
+    if p4.device.type == "cpu":
+        return density_rho_ref(cfg, p4, plan, n, out)
+    consts = (f32(cfg.h2), f32(EPS), f32(cfg.poly6_coeff))
+    return _launch("density_rho", "launch_density_rho", cfg, p4, plan, n,
+                   out, consts)
 
 
 def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,

@@ -17,12 +17,15 @@ def cell_ids(cfg: SimConfig, p: torch.Tensor) -> torch.Tensor:
     """(n, 3) positions -> (n,) int32 linear cell id on the internal grid,
     x fastest, each axis clamped into [0, W).
 
-    Clamping before the integer conversion gives JAX's clamp-after-convert
-    result for every finite input without relying on how an out-of-range
-    float converts to int32."""
+    Clamping before the integer conversion gives JAX's floor, convert and
+    clamp result without relying on how an out-of-range float converts to
+    int32; once clamped into [0, W - 1], the conversion's truncation is the
+    floor. A NaN coordinate goes to 0, as JAX converts it: the clamp keeps
+    NaN, which the CPU would convert to INT_MIN and the card to 0, so
+    nan_to_num takes the place of the floor."""
     w = cfg.nb_grid_width
-    ijk = torch.floor(p * f32(1.0 / cfg.nb_cell)).clamp(0, w - 1)
-    ijk = ijk.to(torch.int32)
+    ijk = torch.nan_to_num(p * f32(1.0 / cfg.nb_cell), nan=0.0)
+    ijk = ijk.clamp_(0, w - 1).to(torch.int32)
     return ijk[:, 0] + w * ijk[:, 1] + (w * w) * ijk[:, 2]
 
 

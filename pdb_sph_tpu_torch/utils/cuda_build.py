@@ -36,6 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "launch_density_lambda": (_P, _P, _P, _I, _I, _I, _I,
                               _F, _F, _F, _F, _F, _F, _F, _P),
+    "launch_density_rho": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "launch_project": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
 }
 
@@ -68,13 +69,9 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _source_hash() -> str:
+def _source_hash(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -82,14 +79,22 @@ def _source_hash() -> str:
 
 @functools.lru_cache(maxsize=1)
 def load_kernels() -> KernelLibrary:
-    """Build (if needed) and load the kernel library, once per process."""
-    out = BUILD_DIR / f"pbf_kernels_{_source_hash()}.so"
+    """Build (if needed) and load the package's kernel library, once per
+    process."""
+    return build_library(sorted(CSRC.glob("*.cu")), BUILD_DIR)
+
+
+def build_library(sources: list[Path], build_dir: Path) -> KernelLibrary:
+    """Build `sources` into one library under `build_dir` (reusing a build
+    of the same sources and flags) and load it. Every launcher of
+    SIGNATURES that the library exports is bound."""
+    out = build_dir / f"pbf_kernels_{_source_hash(sources)}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -101,7 +106,9 @@ def load_kernels() -> KernelLibrary:
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.pbf_error_string.argtypes = (ctypes.c_int,)

@@ -74,6 +74,10 @@ def test_import_loads_no_jax():
         "import pdb_sph_tpu_torch.ops.cuda_pbf, pdb_sph_tpu_torch.ops.dense\n"
         "import pdb_sph_tpu_torch.utils.cuda_build\n"
         "import pdb_sph_tpu_torch.utils.timing\n"
+        "import pdb_sph_tpu_torch.cli, pdb_sph_tpu_torch.core.settle\n"
+        "import pdb_sph_tpu_torch.io.checkpoint, pdb_sph_tpu_torch.io.frames\n"
+        "import pdb_sph_tpu_torch.render.renderer\n"
+        "import pdb_sph_tpu_torch.utils.logging\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pdb_sph_tpu'))\n"
