@@ -3,10 +3,11 @@
 A field-for-field copy of `pdb_sph_tpu.config.SimConfig` with every derived
 constant, so that the two packages compare field by field
 (`tests/test_torch_config.py`). Only `geom` differs: it holds the launch
-geometry of the CUDA kernels (`geometry.KernelGeometry`). `cell_capacity`,
-`max_occupied_cells` and `block` configure the JAX package's cell-table and
-Pallas backends; they are inert here and kept so that configs carry across
-(`interop.config_from_fields`).
+geometry of the CUDA kernels (`geometry.KernelGeometry`), built by
+`geometry_from_env` when no `geom` is given, as in the JAX package.
+`cell_capacity`, `max_occupied_cells` and `block` configure the JAX
+package's cell-table and Pallas backends; they are inert here and kept so
+that configs carry across (`interop.config_from_fields`).
 
 Importing this module must not import `pdb_sph_tpu`, whose package
 `__init__` imports jax.
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from .geometry import KernelGeometry
+from .geometry import KernelGeometry, geometry_from_env
 
 # float32 pi of the CUDA reference's kernels (src/FluidSimulator.cu:234
 # `float _pi = 3.141592f`)
@@ -56,7 +57,10 @@ class SimConfig:
     max_occupied_cells: int = 4096  # inert here (JAX cell-table backend)
     block: int = 128            # inert here (JAX Pallas pair block)
 
-    geom: KernelGeometry = dataclasses.field(default_factory=KernelGeometry)
+    # PBF_* environment variables are construct-time defaults only
+    # (pdb_sph_tpu/config.py:85-91)
+    geom: KernelGeometry = dataclasses.field(
+        default_factory=geometry_from_env)
 
     @property
     def domain_extent(self) -> float:

@@ -27,6 +27,7 @@ import time
 import torch
 
 from ..config import default_config
+from ..geometry import KernelGeometry
 from ..models.scenes import spawn
 from ..ops import dense
 from ..utils.platform import resolve_device
@@ -48,12 +49,14 @@ def settled(mean_density: float, rho0: float, max_speed: float,
 
 
 def settle_check(device: torch.device | str, n: int = 8192,
-                 steps: int = 2000) -> dict:
+                 steps: int = 2000,
+                 geom: KernelGeometry | None = None) -> dict:
     """Run the seed-0 dam break `steps` steps on the window backend, in
     Rollout calls of CHUNK steps, and measure the final state. Returns
-    the numbers and the verdict (`ok`)."""
+    the numbers and the verdict (`ok`). `geom` selects the kernels' geometry
+    (e.g. the tensor-core forms); None takes the config's default."""
     device = resolve_device(device)
-    cfg = default_config(n=n)
+    cfg = default_config(n=n, **({} if geom is None else {"geom": geom}))
     state = spawn(cfg, "dam_break", seed=0, device=device)
     stats = torch.zeros((3,), dtype=torch.int32, device=device)
     rollout = make_rollout(cfg, "window", min(CHUNK, steps), with_stats=True,

@@ -13,7 +13,11 @@ import numpy as np
 import torch
 
 from .config import SimConfig
+from .geometry import KernelGeometry
 from .state import SimState
+
+# the JAX KernelGeometry's fields that the port's geometry shares
+GEOM_FIELDS = ("own", "mxu_sum", "mxu_rd2", "mxu_proj")
 
 
 def state_from_numpy(x, v, ids, step, device) -> SimState:
@@ -35,9 +39,13 @@ def state_to_numpy(state: SimState):
 def config_from_fields(fields: dict) -> SimConfig:
     """The port's SimConfig from another SimConfig's fields.
 
-    `fields` is e.g. `dataclasses.asdict(jax_cfg)`; its `geom` (the TPU
-    kernel geometry) is dropped and the port's default geometry is used.
-    Unknown fields raise, so a field added to one package only is caught.
+    `fields` is e.g. `dataclasses.asdict(jax_cfg)`. Of its `geom` (the TPU
+    kernel geometry, as a dict), the fields that have a counterpart here
+    carry over (GEOM_FIELDS: `own` and the tensor-core switches), so a JAX
+    config or checkpoint with `PBF_MXU_*` set runs the tensor-core kernels
+    in the port too; every other geometry field is dropped. Without `geom`,
+    SimConfig's default factory builds the geometry. Unknown fields raise,
+    so a field added to one package only is caught.
     """
     names = {f.name for f in dataclasses.fields(SimConfig)} - {"geom"}
     kw = {k: v for k, v in fields.items() if k != "geom"}
@@ -45,6 +53,10 @@ def config_from_fields(fields: dict) -> SimConfig:
     if unknown:
         raise ValueError(f"fields unknown to the port's SimConfig: "
                          f"{sorted(unknown)}")
+    geom = fields.get("geom")
+    if geom is not None:
+        kw["geom"] = KernelGeometry(
+            **{k: geom[k] for k in GEOM_FIELDS if k in geom})
     cfg = SimConfig(**kw)
     cfg.validate()
     return cfg

@@ -7,12 +7,15 @@ carries across the two packages in both directions:
   fields as JSON) are the JAX package's keys.
 - `config_json` carries no `geom`: the JAX loader builds its
   `KernelGeometry(**geom)` from that key, and the port's geometry (`own`,
-  `tile`) has other fields. Without the key the JAX package takes its
-  default geometry.
+  `tile`, the tensor-core switches) has other fields. Without the key the
+  JAX package takes its default geometry.
 - The port's `KernelGeometry` goes under a key of its own,
-  `torch_geom_json`, which the JAX loader never reads. A file without it
-  (one the JAX package wrote) loads with the port's default geometry, and
-  the JAX file's `geom` is dropped (`interop.config_from_fields`).
+  `torch_geom_json`, which the JAX loader never reads; a file written
+  before the geometry had the tensor-core switches loads with them off.
+  A file without the key (one the JAX package wrote) takes `own` and the
+  `mxu_*` switches from the JAX file's `geom` and drops its other fields
+  (`interop.config_from_fields`), so a JAX run with `PBF_MXU_*` set
+  resumes on the tensor-core kernels.
 
 Writes are atomic: a temporary file in the same directory, renamed over the
 target, so a partly written checkpoint is never visible.

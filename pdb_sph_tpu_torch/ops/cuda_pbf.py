@@ -16,13 +16,24 @@ projected positions back: the two buffers ping-pong, and the JAX solve's
 lambda splice is the density pass's write.
 
 `density_rho` is the density pass's other output: rho alone, for the
-diagnostics (core/step.diagnostics_fn), through the same kernel body.
+diagnostics (core/step.diagnostics_fn), through the same kernel body. It
+stays FP32 whatever the geometry's switches say: JAX's diagnostic density
+does not read the geometry either.
+
+The geometry's tensor-core switches select the other forms of the passes,
+as in the JAX kernels: `mxu_rd2` computes the density pass's rd2 as
+(|p_i|^2 - (dot + dot)) + |p_j|^2 with the dot of a bf16 hi/lo split
+(`bf16_split`, `dot3`); `mxu_proj` takes the project pass's rd2 the same
+way and its delta-p as own3 * S - s @ cand3^T with s split too; `mxu_sum`
+takes the row sums on the tensor cores at float32 precision, which is the
+plain versions' `.sum(-1)` as a function.
 
 Each pass is a wrapper that dispatches on the tensor's device: a CPU tensor
 goes to the plain torch version beside it (`*_ref`), a CUDA tensor launches
-the hand-written kernel in `csrc/pbf_window.cu`, or raises. `LAUNCHES`
-counts the kernel launches of each wrapper, so a run can show that its
-main path went through the kernels.
+the hand-written kernel, or raises: `csrc/pbf_window.cu` in the default
+geometry, `csrc/pbf_tc.cu` when a switch of the pass is on. `LAUNCHES`
+counts the kernel launches of each wrapper and tensor-core form, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -38,8 +49,12 @@ from .smoothing import EPS, f32
 NUM_WINDOWS = 9
 
 # Kernel launches per wrapper since the last reset_launches(); the plain
-# versions never count.
-LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0}
+# versions never count. The tensor-core forms count per instantiation of
+# density_tc_kernel<rd2, sum> and project_tc_kernel<proj, sum>.
+LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0,
+            "density_tc_rd2": 0, "density_tc_sum": 0, "density_tc_rd2_sum": 0,
+            "project_tc_proj": 0, "project_tc_sum": 0,
+            "project_tc_proj_sum": 0}
 
 # (own rows x candidates) pair elements per batch of the plain versions
 _REF_PAIRS_PER_BATCH = 1 << 22
@@ -151,10 +166,52 @@ def _candidates(ranges: torch.Tensor):
     return idx, k < total[:, None]
 
 
-def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int):
-    """Yield (row0, own (b, own, 4), dx, dy, dz, rd2 clamped, mask,
-    cand (b, L, 4)) for batches of chunks: the plain version of the
-    kernels' candidate streaming, with the same clamped pair distance."""
+def bf16_split(a: torch.Tensor):
+    """float32 -> (hi, lo) bfloat16 pair with hi + lo ~= a to ~16 mantissa
+    bits; the port of `_bf16_split` (pdb_sph_tpu/ops/pallas_pbf.py:301)."""
+    hi = a.to(torch.bfloat16)
+    lo = (a - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def dot3(ah, al, bh, bl, dot) -> torch.Tensor:
+    """The 3-pass bf16 product of `_dot3` (pallas_pbf.py:308):
+    hi*hi + (hi*lo + lo*hi), the lo*lo term dropped. `dot(a, b)` contracts
+    the pairs' float32 values; a product of two bf16 values is exact in
+    float32, so the forms differ only in the order of their sums."""
+    ah, al, bh, bl = (t.float() for t in (ah, al, bh, bl))
+    return dot(ah, bh) + (dot(ah, bl) + dot(al, bh))
+
+
+def _sq3(p: torch.Tensor) -> torch.Tensor:
+    """|p|^2 over the last axis's first three columns, left to right."""
+    return (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]
+            + p[..., 2] * p[..., 2])
+
+
+def _xyz_dot(o: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(b, own, 3) . (b, L, 3) -> (b, own, L), x + y + z left to right."""
+    o, c = o[:, :, None, :], c[:, None, :, :]
+    return (o[..., 0] * c[..., 0] + o[..., 1] * c[..., 1]
+            + o[..., 2] * c[..., 2])
+
+
+def _cand_dot(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(b, own, L) @ (b, L, 3) -> (b, own, 3) over the candidates, as
+    elementwise products and a sum (no matmul, so no TF32 on a card)."""
+    return (s[..., None] * c[:, None, :, :]).sum(dim=2)
+
+
+def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
+                 split_rd2: bool = False):
+    """Yield (row0, own (b, own, 4), (dx, dy, dz) or None, rd2 clamped,
+    mask, cand (b, L, 4)) for batches of chunks: the plain version of the
+    kernels' candidate streaming, with the same clamped pair distance.
+
+    With `split_rd2`, rd2 is the tensor-core form of `_density_kernel`'s
+    mxu_rd2 branch and `_project_kernel_mxu` (pallas_pbf.py:445-455,
+    :563-568), (|o|^2 - (dot + dot)) + |c|^2 with `dot3` of the bf16 splits,
+    and no deltas are yielded."""
     own = cfg.geom.own
     num_chunks = plan.ranges.shape[0]
     lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
@@ -169,12 +226,17 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int):
         mine = p4[c0 * own:c1 * own].view(c1 - c0, own, 4)
         idx, mask = _candidates(plan.ranges[c0:c1])
         cand = p4[idx]
-        dx = mine[:, :, None, 0] - cand[:, None, :, 0]
-        dy = mine[:, :, None, 1] - cand[:, None, :, 1]
-        dz = mine[:, :, None, 2] - cand[:, None, :, 2]
-        rd2 = dx * dx + dy * dy + dz * dz
+        if split_rd2:
+            dot = dot3(*bf16_split(mine[..., :3]), *bf16_split(cand[..., :3]),
+                       _xyz_dot)
+            rd2 = (_sq3(mine)[:, :, None] - (dot + dot)) + _sq3(cand)[:, None]
+            d = None
+        else:
+            d = tuple(mine[:, :, None, a] - cand[:, None, :, a]
+                      for a in range(3))
+            rd2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         rd2 = torch.fmax(torch.fmin(rd2, h2), eps)
-        yield c0 * own, mine, dx, dy, dz, rd2, mask[:, None, :], cand
+        yield c0 * own, mine, d, rd2, mask[:, None, :], cand
 
 
 def _store(out: torch.Tensor, row0: int, rows: torch.Tensor, n: int) -> None:
@@ -186,13 +248,16 @@ def _store(out: torch.Tensor, row0: int, rows: torch.Tensor, n: int) -> None:
 
 def density_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
                      n: int, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain torch version of the density kernel: (n_pad, 4) positions ->
-    (n_pad, 4) with column 3 = lambda for the first n rows."""
+    """Plain torch version of the density kernels: (n_pad, 4) positions ->
+    (n_pad, 4) with column 3 = lambda for the first n rows. rd2 takes the
+    split-dot form when `cfg.geom.mxu_rd2`; the row sums are `.sum(-1)`,
+    also the plain version of `mxu_sum`."""
     if out is None:
         out = torch.zeros_like(p4)
     h, h2 = f32(cfg.h), f32(cfg.h2)
     l2 = f32(cfg.lambda_grad_coeff * cfg.lambda_grad_coeff)
-    for row0, mine, _, _, _, rd2, mask, _ in _pair_blocks(cfg, p4, plan, n):
+    for row0, mine, _, rd2, mask, _ in _pair_blocks(
+            cfg, p4, plan, n, split_rd2=cfg.geom.mxu_rd2):
         t = h2 - rd2
         u = h - rd2 * torch.rsqrt(rd2)
         t2 = t * t
@@ -213,7 +278,7 @@ def density_rho_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
     if out is None:
         out = torch.zeros_like(p4)
     h2 = f32(cfg.h2)
-    for row0, mine, _, _, _, rd2, mask, _ in _pair_blocks(cfg, p4, plan, n):
+    for row0, mine, _, rd2, mask, _ in _pair_blocks(cfg, p4, plan, n):
         t = h2 - rd2
         s_rho = torch.where(mask, (t * t) * t, torch.zeros_like(rd2)).sum(-1)
         rho = f32(cfg.poly6_coeff) * s_rho
@@ -223,22 +288,33 @@ def density_rho_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
 
 def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
                      n: int, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain torch version of the project kernel: (n_pad, 4) positions with
+    """Plain torch version of the project kernels: (n_pad, 4) positions with
     lambda -> (n_pad, 4) projected positions, lambda carried through, for
-    the first n rows."""
+    the first n rows. With `cfg.geom.mxu_proj` it follows
+    `_project_kernel_mxu` (pallas_pbf.py:525-582): split-dot rd2, and
+    own3 + k * (own3 * S - acc_p) with S the row sums of s and acc_p the
+    split product of s and the candidates' positions."""
     if out is None:
         out = torch.zeros_like(p4)
     h = f32(cfg.h)
     k_proj = f32(-cfg.spiky_grad_coeff * cfg.inv_rho0)
     s_corr = f32(cfg.s_corr)
-    for row0, mine, dx, dy, dz, rd2, mask, cand in _pair_blocks(
-            cfg, p4, plan, n):
+    mxu = cfg.geom.mxu_proj
+    for row0, mine, d, rd2, mask, cand in _pair_blocks(
+            cfg, p4, plan, n, split_rd2=mxu):
         u = h - rd2 * torch.rsqrt(rd2)
         olam = mine[..., 3] + s_corr
         s = (u * u) * (olam[:, :, None] + cand[:, None, :, 3])
         s = torch.where(mask, s, torch.zeros_like(s))
-        moved = [mine[..., a] + k_proj * (s * d).sum(dim=-1)
-                 for a, d in enumerate((dx, dy, dz))]
+        if mxu:
+            own3 = mine[..., :3]
+            acc_p = dot3(*bf16_split(s), *bf16_split(cand[..., :3]),
+                         _cand_dot)
+            moved = own3 + k_proj * (own3 * s.sum(dim=-1)[..., None] - acc_p)
+            moved = moved.unbind(-1)
+        else:
+            moved = [mine[..., a] + k_proj * (s * d[a]).sum(dim=-1)
+                     for a in range(3)]
         _store(out, row0, torch.stack([*moved, mine[..., 3]], dim=-1), n)
     return out
 
@@ -275,7 +351,9 @@ def _check(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
 
 def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
             plan: WindowPlan, n: int, out: torch.Tensor | None,
-            consts: tuple) -> torch.Tensor:
+            consts: tuple, threads: int | None = None) -> torch.Tensor:
+    """Launch `fn_name` with (p4, out, ranges, n, chunks, threads, tile,
+    *consts, stream); `threads` defaults to the FP32 kernels' own."""
     from ..utils.cuda_build import load_kernels
 
     if p4.device.type != "cuda":
@@ -290,7 +368,7 @@ def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
     stream = torch.cuda.current_stream(p4.device).cuda_stream
     code = getattr(kernels.lib, fn_name)(
         p4.data_ptr(), out.data_ptr(), plan.ranges.data_ptr(), n,
-        plan.ranges.shape[0], g.threads, g.tile, *consts, stream)
+        plan.ranges.shape[0], threads or g.threads, g.tile, *consts, stream)
     kernels.check(code, fn_name)
     LAUNCHES[name] += 1
     return out
@@ -300,14 +378,23 @@ def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, lambda), first n rows.
 
-    The port of K1, `_density_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:424).
-    CPU: density_pass_ref. CUDA: density_lambda_kernel, or raise."""
+    The port of K1, `_density_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:424),
+    with its `mxu_rd2` branch (:445) and `_ksum`'s `mxu_sum` (:318).
+    CPU: density_pass_ref. CUDA: density_lambda_kernel in the default
+    geometry, density_tc_kernel<mxu_rd2, mxu_sum> when either is on; or
+    raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return density_pass_ref(cfg, p4, plan, n, out)
     consts = (f32(cfg.h), f32(cfg.h2), f32(EPS), f32(cfg.poly6_coeff),
               f32(cfg.lambda_grad_coeff * cfg.lambda_grad_coeff),
               f32(cfg.inv_rho0), f32(cfg.relaxation_eps))
+    g = cfg.geom
+    if g.mxu_rd2 or g.mxu_sum:
+        name = "density_tc" + "_rd2" * g.mxu_rd2 + "_sum" * g.mxu_sum
+        return _launch(name, "launch_density_tc", cfg, p4, plan, n, out,
+                       (int(g.mxu_rd2), int(g.mxu_sum), *consts),
+                       threads=g.tc_threads)
     return _launch("density_lambda", "launch_density_lambda", cfg, p4, plan,
                    n, out, consts)
 
@@ -316,7 +403,8 @@ def density_rho(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, rho), first n rows.
 
-    The diagnostic density through K1's body (its kRho instantiation).
+    The diagnostic density through K1's body (its kRho instantiation), in
+    float32 whatever the geometry's tensor-core switches say.
     CPU: density_rho_ref. CUDA: density_lambda_kernel<kRho>, or raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
@@ -331,13 +419,21 @@ def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     """(n_pad, 4) positions with lambda -> projected (n_pad, 4), first n
     rows, lambda carried through.
 
-    The port of K2, `_project_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:477).
-    CPU: project_pass_ref. CUDA: project_kernel, or raise."""
+    The port of K2, `_project_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:477),
+    with `_project_kernel_mxu` (:525) and `_ksum`'s `mxu_sum` (:318).
+    CPU: project_pass_ref. CUDA: project_kernel in the default geometry,
+    project_tc_kernel<mxu_proj, mxu_sum> when either is on; or raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return project_pass_ref(cfg, p4, plan, n, out)
     consts = (f32(cfg.h), f32(cfg.h2), f32(EPS),
               f32(-cfg.spiky_grad_coeff * cfg.inv_rho0), f32(cfg.s_corr))
+    g = cfg.geom
+    if g.mxu_proj or g.mxu_sum:
+        name = "project_tc" + "_proj" * g.mxu_proj + "_sum" * g.mxu_sum
+        return _launch(name, "launch_project_tc", cfg, p4, plan, n, out,
+                       (int(g.mxu_proj), int(g.mxu_sum), *consts),
+                       threads=g.tc_threads)
     return _launch("project", "launch_project", cfg, p4, plan, n, out, consts)
 
 

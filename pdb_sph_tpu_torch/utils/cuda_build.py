@@ -1,6 +1,7 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-`load_kernels()` compiles every `csrc/*.cu` of the package into one shared
+`load_kernels()` compiles every `csrc/*.cu` of the package, one nvcc per
+source and all started together, and links the objects into one shared
 library with a plain C interface, at first use, into `build/kernels/` under
 the repository root (listed in `.gitignore`), and loads it. The library's
 name carries a hash of the sources and flags, so an edit rebuilds and an
@@ -27,8 +28,9 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # sm_90a: Hopper with its architecture-specific instructions. No
 # --use_fast_math: the pair math keeps IEEE division and the accurate rsqrtf.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every launcher: pointers and the stream as void*, so ctypes
@@ -38,6 +40,10 @@ SIGNATURES = {
                               _F, _F, _F, _F, _F, _F, _F, _P),
     "launch_density_rho": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "launch_project": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    "launch_density_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _F, _F, _P),
+    "launch_project_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _P),
 }
 
 
@@ -94,16 +100,35 @@ def build_library(sources: list[Path], build_dir: Path) -> KernelLibrary:
         nvcc = find_nvcc()
         build_dir.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [tmp.with_suffix(f".{i}.o") for i in range(len(sources))]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            log = "".join(logs)
+            failed = [f"{src}: nvcc failed ({p.returncode}):\n{lg}"
+                      for src, p, lg in zip(sources, procs, logs)
+                      if p.returncode != 0]
+            if not failed:
+                cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                log += res.stdout + res.stderr
+                if res.returncode != 0:
+                    failed.append(f"link failed ({res.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{res.stdout}"
+                                  f"{res.stderr}")
+            if failed:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError("\n".join(failed))
+            os.replace(tmp, out)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name, None)

@@ -160,3 +160,15 @@ def test_settle_check_short_run(steps):
                                      r["max_speed"], r["n_escaped"],
                                      r["stats"], r["nan"])
     assert "SETTLE CHECK: " in settle.format_result(r)
+
+
+def test_settle_check_runs_the_geometry_it_is_given():
+    geom = dataclasses.replace(default_config(n=512).geom, mxu_rd2=True,
+                               mxu_proj=True, mxu_sum=True)
+    r = settle.settle_check("cpu", n=512, steps=20, geom=geom)
+    base = settle.settle_check("cpu", n=512, steps=20)
+    assert r["step"] == 20 and r["stats"] == [0, 0, 0] and r["nan"] is False
+    assert np.isfinite(r["mean_density"]) and r["n_escaped"] == 0
+    # the tensor-core forms are another function: the states differ
+    assert r["mean_density"] != base["mean_density"] \
+        or r["max_speed"] != base["max_speed"]

@@ -87,6 +87,49 @@ def test_port_roundtrip_keeps_its_geometry(tmp_path):
     assert os.listdir(tmp_path / "sub") == ["ck.npz"]
 
 
+def test_port_roundtrip_keeps_the_tensor_core_switches(tmp_path):
+    geom = KernelGeometry(mxu_rd2=True, mxu_proj=True, mxu_sum=True)
+    cfg = default_config(n=256, geom=geom)
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, cfg, spawn(cfg, "dam_break", seed=0))
+    cfg2, _ = checkpoint.load(path)
+    assert cfg2 == cfg and cfg2.geom == geom
+
+
+def test_geometry_without_switches_loads_with_them_off(tmp_path,
+                                                        monkeypatch):
+    """A port file whose geometry predates the switches: (own, tile) only."""
+    monkeypatch.setenv("PBF_MXU_RD2", "1")  # the file's geometry wins
+    cfg = default_config(n=64, geom=KernelGeometry(own=128, tile=64))
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0))
+    with np.load(path) as z:
+        data = dict(z)
+    data[checkpoint.GEOM_KEY] = np.bytes_(b'{"own": 128, "tile": 64}')
+    np.savez(path, **data)
+    cfg2, _ = checkpoint.load(path)
+    assert cfg2.geom == KernelGeometry(own=128, tile=64)
+    assert not (cfg2.geom.mxu_rd2 or cfg2.geom.mxu_sum or cfg2.geom.mxu_proj)
+
+
+def test_jax_checkpoint_with_switches_resumes_on_them(tmp_path):
+    jgeom = dataclasses.replace(JGeometry(), mxu_rd2=True, mxu_proj=True,
+                                mxu_sum=True)
+    jcfg = jpbf.default_config(n=256, geom=jgeom)
+    st = jpbf.spawn(jcfg, "dam_break", seed=3)
+    path = str(tmp_path / "jax.npz")
+    jcheckpoint.save(path, jcfg, st)
+    cfg, state = checkpoint.load(path)
+    assert cfg.geom == KernelGeometry(mxu_rd2=True, mxu_proj=True,
+                                      mxu_sum=True)
+    _assert_same_arrays(interop.state_to_numpy(state), st)
+    # and the port's resumed step runs the tensor-core forms' plain versions
+    fp32 = dataclasses.replace(cfg, geom=KernelGeometry())
+    x_tc = tstep.make_step(cfg, "window")(state).x
+    x_fp = tstep.make_step(fp32, "window")(state).x
+    assert torch.isfinite(x_tc).all() and not torch.equal(x_tc, x_fp)
+
+
 def test_checkpoint_refuses_a_wrong_version_or_shape(tmp_path):
     cfg = default_config(n=64)
     path = str(tmp_path / "ck.npz")
