@@ -92,9 +92,10 @@ def main(argv: list[str] | None = None) -> int:
             cfg, geom=dataclasses.replace(cfg.geom, **switches))
 
     result = {"card": card, "states": [], "rollout_steps_per_s": {}}
-    for step, p4, plan, d4, mean_c, max_c in _state_inputs(cfg, device,
-                                                           STATES):
+    for step, p4, _, plan, d4, mean_c, max_c in _state_inputs(cfg, device,
+                                                              STATES):
         buf = torch.empty_like(p4)
+        scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], device)
         row = {"step": step, "candidates_mean": mean_c,
                "candidates_max": max_c}
         for name, forms in FORMS.items():
@@ -106,7 +107,8 @@ def main(argv: list[str] | None = None) -> int:
                 for form in order + order[::-1]:
                     c = geom_cfg(forms[form])
                     times[form].append(cuda_ms(
-                        lambda: wrapper(c, src, plan, N, buf), REPS))
+                        lambda: wrapper(c, src, plan, N, buf, scratch),
+                        REPS))
             for form, v in times.items():
                 row[f"{name}_{form}_ms"] = v
                 row[f"{name}_{form}_median_ms"] = statistics.median(v)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of the solve kernels between two versions of csrc/pbf_window.cu.
+"""A/B of the FP32 kernels between two versions of csrc/pbf_window.cu, and
+the sweep of the work items' segment length.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -7,24 +8,30 @@ Run from the repository root on a machine with one CUDA card and nvcc:
     python3 benchmarks_torch/kernel_ab.py --base build/ab/base.cu
 
 Builds the tree's source and the base source with the same nvcc flags,
-each into its own library, and drives the port's own wrappers
-(`cuda_pbf.density_pass`, `cuda_pbf.project_pass`) with each library in
-turn on the same inputs: the 80k dam break at step 60 (mid-collapse) and
-at step 480 (settled). Launch times are medians of 20 CUDA-event timed
-launches, taken in the order base, tree, tree, base, `--rounds` times.
-The two libraries' outputs must be bitwise equal. The density kernel's
-lambda form is also compared as PTX, symbol names and label numbers aside
-(the differing lines are printed), and each build's ptxas register report
-is printed.
+each into its own library, and runs K1 (lambda), K2 (project) and K1's rho
+output of each on the same inputs: the 80k dam break at step 60
+(mid-collapse) and at step 480 (settled, the heaviest own-chunks). The
+tree's kernels go through the port's wrappers; a base whose library lacks
+`pbf_window_abi` is the one-block-per-chunk design (launchers without the
+work table) and is launched directly with its own arguments. Launch times
+are medians of 20 CUDA-event timed launches, taken in the order base,
+tree, tree, base, `--rounds` times. Outputs must agree bit for bit when
+both builds have the same launcher interface, and within the kernels'
+tolerances (chip_smoke.py's) when the base is the other design. Then the
+tree's kernels at every segment length of `--segs` (the geometry's `seg`),
+in order and reversed. A variant of a kernel constant (the ring's
+`kStageLen`, `kStages`) is A/B'd as a variant source through `--base`.
+Each build's ptxas register report is printed. Writes
+chiprun_out/kernel_ab.json.
 """
 
 from __future__ import annotations
 
 import argparse
-import difflib
+import ctypes
+import dataclasses
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -36,44 +43,22 @@ ROOT = Path(__file__).resolve().parents[1]
 N = 80_000
 STATES = (60, 480)
 REPS = 20
+KINDS = ("density_lambda", "project", "density_rho")
+# the tolerances of chip_smoke.py's kernel checks
+LAMBDA_RTOL, LAMBDA_ATOL, POS_ATOL, RHO_RTOL = 1e-4, 1e-8, 1e-5, 1e-5
 
-
-def _entries(ptx: str) -> dict[str, list[str]]:
-    """PTX entry name -> its lines, every mangled symbol (the entry, its
-    parameters, the shared array) replaced by `SYM` and the function's
-    index dropped from its block labels: the anonymous namespace's
-    mangling differs from one source file to another, and the labels
-    number the functions in file order."""
-    out, name, body = {}, None, []
-    for line in ptx.splitlines():
-        m = re.search(r"\.entry\s+(\S+)\(", line)
-        if m:
-            name, body = m.group(1), []
-        if name is not None:
-            line = re.sub(r"\$L__BB\d+_", "$L__BB_", line)
-            body.append(re.sub(r"_Z\w+", "SYM", line))
-            if line.strip() == "}":
-                out[name], name = body, None
-    return out
-
-
-def _lambda_ptx(src: Path, out_dir: Path, tag: str) -> tuple[str, list[str]]:
-    from pdb_sph_tpu_torch.utils.cuda_build import find_nvcc
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    ptx = out_dir / f"{tag}.ptx"
-    subprocess.run([find_nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
-                    "-o", str(ptx), str(src)], check=True)
-    entries = {k: v for k, v in _entries(ptx.read_text()).items()
-               if "density_lambda_kernel" in k}
-    # the template's lambda form is DensityOut::kLambda, enumerator 0
-    name = (next(iter(entries)) if len(entries) == 1
-            else next(k for k in entries if "E0E" in k))
-    return name, entries[name]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the one-block-per-chunk launchers: (pin, pout, ranges, n, chunks, own,
+# tile, constants..., stream), one block of `own` threads per chunk
+_V1 = {"density_lambda": ("launch_density_lambda", 7),
+       "project": ("launch_project", 5),
+       "density_rho": ("launch_density_rho", 3)}
+_V1_TILE = 128
 
 
 def _state_inputs(cfg, device, steps_to: tuple[int, ...]):
-    """(step, p4, plan, lambda-carrying p4) for the dam at each step."""
+    """(step, p4, sorted cell ids, plan, lambda-carrying p4, mean and max
+    candidates per chunk) for the dam at each step."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.core.step import sort_cells
     from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
@@ -89,9 +74,98 @@ def _state_inputs(cfg, device, steps_to: tuple[int, ...]):
         p4[:N, :3] = state.x[order]
         plan = cuda_pbf.build_plan(cfg, sorted_cid)
         lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
-        out.append((step, p4, plan, cuda_pbf.density_pass(cfg, p4, plan, N),
+        out.append((step, p4, sorted_cid, plan,
+                    cuda_pbf.density_pass(cfg, p4, plan, N),
                     float(lens.float().mean()), int(lens.max())))
     return out
+
+
+def _abi(kl) -> int:
+    fn = getattr(kl.lib, "pbf_window_abi", None)
+    return 1 if fn is None else int(fn())
+
+
+def _runner(kl, cfg, scratch):
+    """kind -> fn(src, plan, out) launching `kind` from library `kl`."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.utils import cuda_build
+
+    if _abi(kl) >= 2:
+        wrappers = {"density_lambda": cuda_pbf.density_pass,
+                    "project": cuda_pbf.project_pass,
+                    "density_rho": cuda_pbf.density_rho}
+
+        def run(kind, src, plan, out):
+            cuda_build.load_kernels = lambda: kl
+            return wrappers[kind](cfg, src, plan, N, out, scratch)
+        return run
+
+    consts = {"density_lambda": cuda_pbf.density_consts(cfg),
+              "project": cuda_pbf.project_consts(cfg),
+              "density_rho": cuda_pbf.rho_consts(cfg)}
+    for name, n_consts in _V1.values():
+        getattr(kl.lib, name).argtypes = (_P, _P, _P, _I, _I, _I, _I,
+                                          *[_F] * n_consts, _P)
+
+    def run(kind, src, plan, out):
+        fn = getattr(kl.lib, _V1[kind][0])
+        stream = torch.cuda.current_stream().cuda_stream
+        kl.check(fn(src.data_ptr(), out.data_ptr(), plan.ranges.data_ptr(),
+                    N, plan.ranges.shape[0], cfg.geom.own, _V1_TILE,
+                    *consts[kind], stream), _V1[kind][0])
+        return out
+    return run
+
+
+def _disagreement(kind: str, got: torch.Tensor, want: torch.Tensor):
+    """(max |diff|, entries outside the kernel's tolerance)."""
+    if kind == "project":
+        err = (got[:N, :3] - want[:N, :3]).abs()
+        return float(err.max()), int((err > POS_ATOL).sum())
+    err = (got[:N, 3] - want[:N, 3]).abs()
+    if kind == "density_lambda":
+        tol = LAMBDA_ATOL + LAMBDA_RTOL * want[:N, 3].abs()
+    else:
+        tol = RHO_RTOL * want[:N, 3].abs()
+    return float(err.max()), int((err > tol).sum())
+
+
+def _sweep(cfg, device, states, segs, rounds) -> list[dict]:
+    """The tree's kernels at each seg, forward then reversed."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.utils.timing import cuda_ms
+
+    rows = []
+    for step, p4, sorted_cid, _, d4, _, _ in states:
+        times = {s: {k: [] for k in KINDS} for s in segs}
+        plans, cfgs = {}, {}
+        for seg in segs:
+            c = dataclasses.replace(cfg, geom=dataclasses.replace(
+                cfg.geom, seg=seg))
+            c.geom.validate()
+            cfgs[seg] = c
+            plans[seg] = cuda_pbf.build_plan(c, sorted_cid)
+        scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], device)
+        buf = torch.empty_like(p4)
+        fns = {"density_lambda": (cuda_pbf.density_pass, p4),
+               "project": (cuda_pbf.project_pass, d4),
+               "density_rho": (cuda_pbf.density_rho, p4)}
+        for _ in range(rounds):
+            for g in segs + segs[::-1]:
+                for kind, (fn, src) in fns.items():
+                    times[g][kind].append(cuda_ms(
+                        lambda: fn(cfgs[g], src, plans[g], N, buf, scratch),
+                        REPS))
+        for seg, v in times.items():
+            row = {"step": step, "seg": seg,
+                   "items": int(plans[seg].seg_prefix[-1])}
+            row.update({f"{k}_median_ms": statistics.median(t)
+                        for k, t in v.items()})
+            rows.append(row)
+            print(f"[sweep] step {step} seg {seg} "
+                  f"({row['items']} items): " + ", ".join(
+                      f"{k} {row[f'{k}_median_ms']:.4f} ms" for k in KINDS))
+    return rows
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -99,6 +173,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--base", required=True, type=Path,
                     help="the other version of csrc/pbf_window.cu")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--segs", default="256,384,512,768,1024,1536,2048")
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -116,67 +191,74 @@ def main(argv: list[str] | None = None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card)
     ab_dir = ROOT / "build" / "kernel_ab"
-    tree_src = cuda_build.CSRC / "pbf_window.cu"
     libs = {"tree": cuda_build.load_kernels(),
             "base": cuda_build.build_library([args.base.resolve()], ab_dir)}
+    abi = {tag: _abi(kl) for tag, kl in libs.items()}
+    bitwise = abi["tree"] == abi["base"]
     for tag, kl in libs.items():
         regs = [ln.strip() for ln in kl.log.splitlines() if "registers" in ln]
-        print(f"[build] {tag}: {kl.path.name}; ptxas: {' | '.join(regs)}")
-
-    names, ptx = {}, {}
-    for tag, src in (("tree", tree_src), ("base", args.base.resolve())):
-        names[tag], ptx[tag] = _lambda_ptx(src, ab_dir, tag)
-    same_ptx = ptx["tree"] == ptx["base"]
-    diff = sum(a != b for a, b in zip(ptx["tree"], ptx["base"])) + abs(
-        len(ptx["tree"]) - len(ptx["base"]))
-    print(f"[ptx] lambda kernel: tree {names['tree']} ({len(ptx['tree'])} "
-          f"lines), base {names['base']} ({len(ptx['base'])} lines); "
-          f"identical {same_ptx} ({diff} lines differ)")
-    udiff = list(difflib.unified_diff(ptx["base"], ptx["tree"], "base",
-                                      "tree", n=0, lineterm=""))
-    for line in udiff[:60]:
-        print(f"[ptx]   {line}")
+        print(f"[build] {tag}: {kl.path.name}, launcher interface "
+              f"{abi[tag]}; ptxas: {' | '.join(regs)}")
+    print("[ab] outputs compared " + ("bit for bit" if bitwise else
+                                      "within the kernels' tolerances"))
 
     device = torch.device("cuda", 0)
     cfg = pbf.default_config(n=N)
-    result = {"card": card, "lambda_ptx_identical": same_ptx, "states": []}
+    result = {"card": card, "abi": abi, "bitwise": bitwise, "states": []}
     loader = cuda_build.load_kernels
     try:
-        for step, p4, plan, d4, mean_c, max_c in _state_inputs(
-                cfg, device, STATES):
-            outs, times = {}, {t: {"density_lambda": [], "project": []}
-                               for t in libs}
+        states = _state_inputs(cfg, device, STATES)
+        for step, p4, _, plan, d4, mean_c, max_c in states:
+            scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], device)
+            runs = {t: _runner(kl, cfg, scratch) for t, kl in libs.items()}
+            src = {"density_lambda": p4, "project": d4, "density_rho": p4}
+            times = {t: {k: [] for k in KINDS} for t in libs}
             buf = torch.empty_like(p4)
             for _ in range(args.rounds):
                 for tag in ("base", "tree", "tree", "base"):
-                    cuda_build.load_kernels = (lambda kl=libs[tag]: kl)
-                    times[tag]["density_lambda"].append(cuda_ms(
-                        lambda: cuda_pbf.density_pass(cfg, p4, plan, N, buf),
-                        REPS))
-                    times[tag]["project"].append(cuda_ms(
-                        lambda: cuda_pbf.project_pass(cfg, d4, plan, N, buf),
-                        REPS))
-                    outs[tag] = (cuda_pbf.density_pass(cfg, p4, plan, N),
-                                 cuda_pbf.project_pass(cfg, d4, plan, N))
-            equal = all(torch.equal(a, b)
-                        for a, b in zip(outs["tree"], outs["base"]))
+                    for kind in KINDS:
+                        times[tag][kind].append(cuda_ms(
+                            lambda: runs[tag](kind, src[kind], plan, buf),
+                            REPS))
             row = {"step": step, "candidates_mean": mean_c,
-                   "candidates_max": max_c, "bitwise_equal": equal}
-            for tag in libs:
-                for k, v in times[tag].items():
-                    row[f"{k}_{tag}_ms"] = v
-                    row[f"{k}_{tag}_median_ms"] = statistics.median(v)
+                   "candidates_max": max_c,
+                   "items": int(plan.seg_prefix[-1])}
+            bad = []
+            for kind in KINDS:
+                outs = {t: runs[t](kind, src[kind], plan,
+                                   torch.zeros_like(p4)) for t in libs}
+                if bitwise:
+                    ok = torch.equal(outs["tree"], outs["base"])
+                    diff, outside = None, None
+                else:
+                    diff, outside = _disagreement(kind, outs["tree"],
+                                                  outs["base"])
+                    ok = outside == 0
+                if not ok:
+                    bad.append(kind)
+                row[f"{kind}_max_abs_diff"] = diff
+                for tag in libs:
+                    row[f"{kind}_{tag}_ms"] = times[tag][kind]
+                    row[f"{kind}_{tag}_median_ms"] = statistics.median(
+                        times[tag][kind])
+                b, t = (row[f"{kind}_{x}_median_ms"] for x in ("base",
+                                                              "tree"))
+                print(f"[ab] step {step} (candidates/chunk mean {mean_c:.1f}"
+                      f" max {max_c}; {row['items']} items) {kind}: base "
+                      f"{b:.4f} ms, tree {t:.4f} ms (tree/base {t / b:.4f}); "
+                      f"outputs {'equal' if ok else 'DIFFER'}"
+                      + ("" if diff is None else f" (max|diff| {diff:.3e},"
+                         f" {outside} outside the tolerance)")
+                      + f"; base runs {times['base'][kind]}, tree runs "
+                      f"{times['tree'][kind]}")
             result["states"].append(row)
-            print(f"[ab] step {step} (candidates/chunk mean {mean_c:.1f} "
-                  f"max {max_c}): outputs bitwise equal {equal}")
-            for k in ("density_lambda", "project"):
-                b, t = (row[f"{k}_{x}_median_ms"] for x in ("base", "tree"))
-                print(f"[ab]   {k}: base {b:.4f} ms, tree {t:.4f} ms "
-                      f"(tree/base {t / b:.4f}); base runs "
-                      f"{row[f'{k}_base_ms']}, tree runs "
-                      f"{row[f'{k}_tree_ms']}")
-            if not equal:
-                raise AssertionError("the two builds' outputs differ")
+            if bad:
+                raise AssertionError(f"the two builds disagree at step "
+                                     f"{step}: {bad}")
+        cuda_build.load_kernels = loader
+        result["sweep"] = _sweep(
+            cfg, device, states, [int(s) for s in args.segs.split(",")],
+            max(1, args.rounds - 1))
     finally:
         cuda_build.load_kernels = loader
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -11,9 +11,12 @@ exits non-zero:
   1. device  — the card's name and power limit, torch / CUDA / nvcc versions;
   2. build   — the CUDA kernels built from csrc/ with nvcc;
   3. kernels — each kernel against its plain torch version on the same
-               inputs, at the main path's shape (80k dam break, mid-collapse),
-               with errors and times: the FP32 kernels (csrc/pbf_window.cu)
-               and the six tensor-core instantiations (csrc/pbf_tc.cu);
+               inputs, at the main path's shape, with errors, times, and
+               each kernel's bound and share of it: the FP32 kernels
+               (csrc/pbf_window.cu) on the 80k dam break mid-collapse (step
+               60) and settled (step 480, the heaviest own-chunks), each
+               launched twice for bitwise-equal output; the six tensor-core
+               instantiations (csrc/pbf_tc.cu) at step 60;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
                settle chunk: steps/s, stats, launch counts, stage breakdown;
@@ -21,7 +24,9 @@ exits non-zero:
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
                steps must come to rest (mean dense rho within 5 % of rho0,
                max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN),
-               in the default geometry and with every tensor-core switch on;
+               in the default geometry, with every tensor-core switch on,
+               and with one work item a chunk (a witness whose FP32 sums
+               differ from the default geometry's only in their order);
   7. cli     — the runner (pdb_sph_tpu_torch.cli.main) in-process on the
                card: the 80k dam break with metrics, frames, a GIF and a
                checkpoint; a resume of it; the 80k blowup; and a short 80k
@@ -54,6 +59,7 @@ import torch
 
 N_MAIN = 80_000        # the flagship dam break
 SETTLE_STEPS = 60      # kernel-vs-plain inputs: mid-collapse state
+SETTLED_STEP = 480     # and the settled state, with the heaviest chunks
 N_ORACLE = 2048
 ROLLOUT_STEPS = 240
 REPS = 20
@@ -76,22 +82,28 @@ TC_POS_ATOL = 1e-5
 TC_SEPARATION = 10
 TC_PLAIN_REPS = 3  # the plain tensor-core forms take ~0.5 s each
 SETTLE_N, SETTLE_GATE_STEPS = 8192, 2000
+# the settle gate's witness geometry: segments longer than any chunk's
+# candidates, so one work item a chunk
+WITNESS_SEG = 1 << 20
 # the runner's runs: 80k dam break, its resume, the 80k blowup
 CLI_STEPS, CLI_RESUME_STEPS, CLI_EVERY, CLI_RENDER = 240, 40, 20, 120
 # window vs dense over 3 steps (tests/test_pallas.py:45-55)
 ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-5
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): FP32
+# outside the tensor cores, dense bf16 on the tensor cores, HBM3
+PEAK_FP32, PEAK_BF16_MMA, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 CU_SOURCE = "pdb_sph_tpu_torch/csrc/pbf_window.cu"
 TC_SOURCE = "pdb_sph_tpu_torch/csrc/pbf_tc.cu"
 PALLAS = "pdb_sph_tpu/ops/pallas_pbf.py"
 # wrapper counter -> (kernel name, source, the TPU kernel it replaces)
 KERNELS = {
-    "density_lambda": ("density_lambda_kernel<kLambda>", CU_SOURCE,
-                       f"{PALLAS}:424"),
-    "project": ("project_kernel", CU_SOURCE, f"{PALLAS}:477"),
-    # K1's body with the rho output: the diagnostic density, which the JAX
+    "density_lambda": ("window_kernel<kLambda>", CU_SOURCE, f"{PALLAS}:424"),
+    "project": ("window_kernel<kProject>", CU_SOURCE, f"{PALLAS}:477"),
+    # K1's kernel with the rho output: the diagnostic density, which the JAX
     # package computes in plain XLA (no pallas_call) in diagnostics_fn
-    "density_rho": ("density_lambda_kernel<kRho>", CU_SOURCE,
+    "density_rho": ("window_kernel<kRho>", CU_SOURCE,
                     "pdb_sph_tpu/core/step.py:130"),
     "density_tc_rd2": ("density_tc_kernel<kRd2Mma>", TC_SOURCE,
                        f"{PALLAS}:445"),
@@ -105,6 +117,27 @@ KERNELS = {
                        f"{PALLAS}:318"),
     "project_tc_proj_sum": ("project_tc_kernel<kProjMma, kSumMma>",
                             TC_SOURCE, f"{PALLAS}:525"),
+}
+# flops per (own row, candidate) pair, an FMA counted as 2, read from the
+# pair bodies, each as (on the CUDA cores in float32, on the tensor cores):
+# first what every candidate costs, then what only a pair within h adds.
+# The clamp of rd2 to h^2 zeroes every term of a pair beyond h, so the
+# function needs no more of such a pair than its distance. FP32: deltas 3
+# and rd2 5 for every pair; within h, lambda t 1, u 2, t2 u2 2, the two
+# sums 5; rho t^3 and its sum 4; project u 2, u^2 1, lambda sum 1, s 1,
+# three FMAs 6. The rd2 mma forms take rd2 as (|o|^2 - 2 dot) + |c|^2 (3
+# flops on the CUDA cores in place of 8) and one m16n8k16 per 16 x 8 pairs
+# (32 flops a pair); proj also splits s (1 flop) and takes delta-p in two
+# more mmas per 16 x 16 pairs in place of three FMAs. The sum forms still
+# add each term element-wise on the CUDA cores; their row-sum mma runs
+# once per row.
+PAIR_FLOPS = {
+    "density_lambda": ((8, 0), (10, 0)), "density_rho": ((8, 0), (4, 0)),
+    "project": ((8, 0), (11, 0)),
+    "density_tc_rd2": ((3, 32), (10, 0)), "density_tc_sum": ((8, 0), (10, 0)),
+    "density_tc_rd2_sum": ((3, 32), (10, 0)),
+    "project_tc_proj": ((3, 32), (7, 32)), "project_tc_sum": ((8, 0), (11, 0)),
+    "project_tc_proj_sum": ((3, 32), (7, 32)),
 }
 SOLVE_KERNELS = ("density_lambda", "project")
 TC_SOLVE_KERNELS = ("density_tc_rd2_sum", "project_tc_proj_sum")
@@ -170,18 +203,55 @@ def _candidates(plan) -> tuple[float, int]:
     return float(lens.float().mean()), int(lens.max())
 
 
-def phase_kernels(device, n: int = N_MAIN) -> dict:
-    """Each kernel against its plain version on one mid-collapse state."""
-    import pdb_sph_tpu_torch as pbf
+def _near_pairs(cfg, p4, plan, n: int) -> int:
+    """The (real own row, candidate) pairs of this plan that lie within h:
+    those whose terms the clamp does not zero."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    h2 = torch.tensor(float(cfg.h2), dtype=torch.float32, device=p4.device)
+    near = 0
+    for row0, mine, _, rd2, mask, _ in cuda_pbf._pair_blocks(cfg, p4, plan,
+                                                             n):
+        rows = row0 + torch.arange(mine.shape[0] * mine.shape[1],
+                                   device=p4.device).view(mine.shape[:2])
+        near += int(((rd2 < h2) & mask & (rows < n)[..., None]).sum())
+    return near
+
+
+def _bound(name: str, plan, n: int, own: int,
+           near: int) -> tuple[float, str, int]:
+    """(bound ms, "operations" or "bytes", pairs) of one launch of kernel
+    `name` on this plan: the least time the card could take, the larger of
+    the pair flops over the published peak of their type and the bytes
+    (positions read once, the n rows written once, the plan read once)
+    over the memory rate. Pairs are those this data needs: each real own
+    row against its chunk's candidates, each costing its distance, and of
+    them the `near` pairs within h the rest of the pair body."""
+    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1).double()
+    rows = (n - own * torch.arange(lens.numel(), device=lens.device,
+                                   dtype=torch.float64)).clamp(0, own)
+    pairs = int((rows * lens).sum())
+    (fp32, mma), (fp32_near, mma_near) = PAIR_FLOPS[name]
+    ops_s = max((pairs * fp32 + near * fp32_near) / PEAK_FP32,
+                (pairs * mma + near * mma_near) / PEAK_BF16_MMA)
+    plan_bytes = sum(t.numel() * t.element_size() for t in (
+        plan.ranges, plan.seg_prefix, plan.seg_len))
+    bytes_s = (16 * own * lens.numel() + 16 * n + plan_bytes) / PEAK_BYTES
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes", pairs)
+
+
+def _fp32_kernels(cfg, p4, plan, n: int, step: int,
+                  plain_reps: int) -> tuple[dict, torch.Tensor]:
+    """K1 lambda, K2 and K1 rho against their plain versions on one state:
+    errors within the tolerances, two launches bitwise equal, times beside
+    their bounds. Returns ({counter: (max|err|, ms, plain ms or None,
+    bound ms, bound by)}, K1's output)."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import cuda_ms
 
-    cfg = pbf.default_config(n=n)
-    state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
-    state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
-    p4, plan = _sorted_p4(cfg, state.x)
-
-    d_k = cuda_pbf.density_pass(cfg, p4, plan, n)
+    scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], p4.device)
+    d_k = cuda_pbf.density_pass(cfg, p4, plan, n, scratch=scratch)
     d_r = cuda_pbf.density_pass_ref(cfg, p4, plan, n)
     lam_k, lam_r = d_k[:n, 3], d_r[:n, 3]
     lam_err = (lam_k - lam_r).abs()
@@ -191,14 +261,14 @@ def phase_kernels(device, n: int = N_MAIN) -> dict:
         raise AssertionError("density kernel changed the positions it carries")
 
     # both project versions take the kernel's density output
-    p_k = cuda_pbf.project_pass(cfg, d_k, plan, n)
+    p_k = cuda_pbf.project_pass(cfg, d_k, plan, n, scratch=scratch)
     p_r = cuda_pbf.project_pass_ref(cfg, d_k, plan, n)
     pos_err = (p_k[:n, :3] - p_r[:n, :3]).abs()
     pos_max = float(pos_err.max())
     move = float((p_r[:n, :3] - d_k[:n, :3]).abs().max())
 
-    # the diagnostic rho, through K1's body with the rho output
-    r_k = cuda_pbf.density_rho(cfg, p4, plan, n)
+    # the diagnostic rho, through K1's kernel with the rho output
+    r_k = cuda_pbf.density_rho(cfg, p4, plan, n, scratch=scratch)
     r_r = cuda_pbf.density_rho_ref(cfg, p4, plan, n)
     rho_err = (r_k[:n, 3] - r_r[:n, 3]).abs()
     rho_bad = int((rho_err > RHO_RTOL * r_r[:n, 3].abs()).sum())
@@ -206,42 +276,98 @@ def phase_kernels(device, n: int = N_MAIN) -> dict:
     if not torch.equal(r_k[:n, :3], p4[:n, :3]):
         raise AssertionError("rho kernel changed the positions it carries")
 
-    buf = torch.empty_like(p4)
-    times = {
-        "density_lambda": (
-            cuda_ms(lambda: cuda_pbf.density_pass(cfg, p4, plan, n, buf),
-                    REPS),
-            cuda_ms(lambda: cuda_pbf.density_pass_ref(cfg, p4, plan, n, buf),
-                    REPS)),
-        "project": (
-            cuda_ms(lambda: cuda_pbf.project_pass(cfg, d_k, plan, n, buf),
-                    REPS),
-            cuda_ms(lambda: cuda_pbf.project_pass_ref(cfg, d_k, plan, n, buf),
-                    REPS)),
-        "density_rho": (
-            cuda_ms(lambda: cuda_pbf.density_rho(cfg, p4, plan, n, buf),
-                    REPS),
-            cuda_ms(lambda: cuda_pbf.density_rho_ref(cfg, p4, plan, n, buf),
-                    REPS)),
+    # a second launch of each gives the same bits: the combine is fixed
+    again = {
+        "density_lambda": (cuda_pbf.density_pass(cfg, p4, plan, n,
+                                                 scratch=scratch), d_k),
+        "project": (cuda_pbf.project_pass(cfg, d_k, plan, n,
+                                          scratch=scratch), p_k),
+        "density_rho": (cuda_pbf.density_rho(cfg, p4, plan, n,
+                                             scratch=scratch), r_k),
     }
+    unequal = [k for k, (a, b) in again.items() if not torch.equal(a, b)]
+    if scratch.counters.any():
+        raise AssertionError("a kernel left its counters nonzero")
+
+    buf = torch.empty_like(p4)
+    runs = {
+        "density_lambda": (
+            lambda: cuda_pbf.density_pass(cfg, p4, plan, n, buf, scratch),
+            lambda: cuda_pbf.density_pass_ref(cfg, p4, plan, n, buf)),
+        "project": (
+            lambda: cuda_pbf.project_pass(cfg, d_k, plan, n, buf, scratch),
+            lambda: cuda_pbf.project_pass_ref(cfg, d_k, plan, n, buf)),
+        "density_rho": (
+            lambda: cuda_pbf.density_rho(cfg, p4, plan, n, buf, scratch),
+            lambda: cuda_pbf.density_rho_ref(cfg, p4, plan, n, buf)),
+    }
+    errs = {"density_lambda": float(lam_err.max()), "project": pos_max,
+            "density_rho": float(rho_err.max())}
     mean_c, max_c = _candidates(plan)
-    print(f"[kernels] n={n} after {SETTLE_STEPS} steps; candidates/chunk "
-          f"mean {mean_c:.1f} max {max_c}; "
+    items = int(plan.seg_prefix[-1])
+    near = _near_pairs(cfg, p4, plan, n)
+    pairs = _bound("density_lambda", plan, n, cfg.geom.own, near)[2]
+    print(f"[kernels] n={n} after {step} steps; candidates/chunk "
+          f"mean {mean_c:.1f} max {max_c}; {pairs} pairs, {near} within h "
+          f"({100 * near / pairs:.2f} %); {items} work items of <= "
+          f"{int(plan.seg_len)} candidates; "
           f"lambda max|err| {float(lam_err.max()):.3e} max rel "
           f"{lam_rel:.3e} (tol {LAMBDA_ATOL:g} + {LAMBDA_RTOL:g}|ref|, "
           f"{lam_bad} outside); positions max|err| {pos_max:.3e} (atol "
           f"{POS_ATOL:g}; largest move {move:.3e}); rho max|err| "
           f"{float(rho_err.max()):.3e} max rel {rho_rel:.3e} (rtol "
-          f"{RHO_RTOL:g}, {rho_bad} outside)")
-    for name, (k_ms, r_ms) in times.items():
-        print(f"[kernels] {KERNELS[name][0]}: kernel {k_ms:.4f} ms, plain "
-              f"{r_ms:.4f} ms (median of {REPS}, CUDA events)")
+          f"{RHO_RTOL:g}, {rho_bad} outside); two launches bitwise equal: "
+          f"{'all' if not unequal else 'not ' + ', '.join(unequal)}")
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        k_ms = cuda_ms(kernel, REPS)
+        r_ms = cuda_ms(plain, plain_reps) if plain_reps else None
+        bound_ms, bound_by, _ = _bound(name, plan, n, cfg.geom.own, near)
+        plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
+                     if r_ms is not None else "plain not timed here")
+        every, within = (f[0] for f in PAIR_FLOPS[name])
+        print(f"[kernels] {KERNELS[name][0]} at step {step}: kernel "
+              f"{k_ms:.4f} ms (median of {REPS}, CUDA events), {plain_txt}; "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({pairs} pairs x "
+              f"{every} + {near} x {within} flops at "
+              f"{PEAK_FP32 / 1e12:g} TFLOP/s), "
+              f"{100 * bound_ms / k_ms:.1f} % of bound")
+        out[name] = (errs[name], k_ms, r_ms, bound_ms, bound_by)
     if lam_bad or not pos_max <= POS_ATOL or rho_bad:
-        raise AssertionError("a kernel disagrees with its plain version")
-    errs = {"density_lambda": float(lam_err.max()), "project": pos_max,
-            "density_rho": float(rho_err.max())}
-    out = {k: (errs[k], *times[k], 0) for k in times}
-    out.update(_tc_kernels(cfg, p4, d_k, plan, n))
+        raise AssertionError(f"a kernel disagrees with its plain version at "
+                             f"step {step}")
+    if unequal:
+        raise AssertionError(f"two launches differ at step {step}: {unequal}")
+    return out, d_k
+
+
+def phase_kernels(device, n: int = N_MAIN) -> dict:
+    """Each kernel against its plain version on the dam break at step 60
+    and, for the FP32 kernels, at step 480. Returns {counter: (max|err|,
+    ms, plain ms, checked launches, bound ms, bound by, ms at step 480 or
+    None, bound ms at step 480)}."""
+    import pdb_sph_tpu_torch as pbf
+
+    cfg = pbf.default_config(n=n)
+    state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+    state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
+    p4, plan = _sorted_p4(cfg, state.x)
+    mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, REPS)
+    tc = _tc_kernels(cfg, p4, d_k, plan, n)
+    state = pbf.make_rollout(cfg, "window", SETTLED_STEP - SETTLE_STEPS,
+                             device=device)(state)
+    p4, plan = _sorted_p4(cfg, state.x)
+    settled, _ = _fp32_kernels(cfg, p4, plan, n, SETTLED_STEP, 0)
+    out = {k: (max(v[0], settled[k][0]), v[1], v[2], 0, v[3], v[4],
+               settled[k][1], settled[k][3]) for k, v in mid.items()}
+    # the tensor-core forms' bounds on the settled state (their times
+    # there are benchmarks_torch/geometry_ab.py's)
+    near = _near_pairs(cfg, p4, plan, n)
+    for k, v in tc.items():
+        bound_ms, bound_by, _ = _bound(k, plan, n, cfg.geom.own, near)
+        out[k] = (*v[:7], bound_ms)
+        print(f"[kernels] {KERNELS[k][0]} bound at step {SETTLED_STEP}: "
+              f"{bound_ms:.4f} ms by {bound_by}")
     return out
 
 
@@ -249,7 +375,7 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
     """The six tensor-core instantiations against their plain versions on
     phase 3's input; the project forms take the FP32 kernel's lambda, as
     the FP32 project kernel does. Returns {counter: (max|err|, ms,
-    plain ms, checked launches)}."""
+    plain ms, checked launches, bound ms, bound by, None, None)}."""
     import dataclasses
 
     from pdb_sph_tpu_torch.ops import cuda_pbf
@@ -257,6 +383,7 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
 
     fp32 = {"density": cuda_pbf.density_pass_ref(cfg, p4, plan, n)[:n, 3],
             "project": cuda_pbf.project_pass_ref(cfg, d_fp, plan, n)[:n, :3]}
+    near = _near_pairs(cfg, p4, plan, n)
     buf = torch.empty_like(p4)
     out, bad = {}, []
     for name, switches in TC_FORMS.items():
@@ -289,17 +416,21 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
             tol = f"atol {TC_POS_ATOL:g}"
         k_ms = cuda_ms(lambda: wrapper(tcfg, src, plan, n, buf), REPS)
         r_ms = cuda_ms(lambda: plain(tcfg, src, plan, n, buf), TC_PLAIN_REPS)
+        bound_ms, bound_by, _ = _bound(name, plan, n, cfg.geom.own, near)
         print(f"[kernels] {KERNELS[name][0]}: max|err| "
               f"{float(err.max()):.3e} vs plain (tol {tol}, {n_bad} "
               f"outside); plain form vs plain FP32 form max|diff| "
               f"{form:.3e}; kernel {k_ms:.4f} ms (median of {REPS}), plain "
               f"{r_ms:.4f} ms (median of {TC_PLAIN_REPS}), CUDA events; "
+              f"bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{100 * bound_ms / k_ms:.1f} % of bound; "
               f"checked launches {launches}")
         other = switches.get("mxu_rd2") or switches.get("mxu_proj")
         if n_bad or launches != 1 \
                 or (other and TC_SEPARATION * float(err.max()) > form):
             bad.append(name)
-        out[name] = (float(err.max()), k_ms, r_ms, launches)
+        out[name] = (float(err.max()), k_ms, r_ms, launches, bound_ms,
+                     bound_by, None, None)
     if bad:
         raise AssertionError(f"tensor-core kernels disagree with their plain "
                              f"versions or did not launch: {bad}")
@@ -361,6 +492,8 @@ def phase_main(device, card: str, geom=None, n: int = N_MAIN,
     expect, idle = _solve_kernels(cfg.geom)
     rollout = pbf.make_rollout(cfg, "window", steps, with_stats=True,
                                device=device)
+    scratch = rollout.stepper.scratch
+    ptrs = [t.data_ptr() for t in scratch]
     state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
     t0 = time.perf_counter()
     state, settle_stats = rollout(state)
@@ -393,6 +526,12 @@ def phase_main(device, card: str, geom=None, n: int = N_MAIN,
         raise AssertionError(f"expected {want} launches of each of {expect} "
                              f"and none of {idle}, got {launches}")
 
+    if rollout.stepper.scratch is not scratch \
+            or [t.data_ptr() for t in scratch] != ptrs \
+            or scratch.counters.any():
+        raise AssertionError("the rollout replaced the Stepper's scratch or "
+                             "left its counters nonzero")
+
     stages = _stage_breakdown(rollout.stepper, state)
     total = sum(stages.values())
     print(f"[main] {_geom_name(cfg.geom)} step breakdown (median of "
@@ -403,7 +542,11 @@ def phase_main(device, card: str, geom=None, n: int = N_MAIN,
 
 
 def _geom_name(geom) -> str:
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+
     on = [k for k in ALL_SWITCHES if getattr(geom, k)]
+    if geom.seg != KernelGeometry.seg:
+        on.append(f"seg={geom.seg}")
     return "+".join(on) if on else "default geometry"
 
 
@@ -598,6 +741,7 @@ def main() -> int:
     tc_main = phase_main(device, card, geom=tc_geom)
     phase_settle(device)
     tc_settle = phase_settle(device, geom=tc_geom)
+    phase_settle(device, geom=KernelGeometry(seg=WITNESS_SEG))
     rho, tc_cli = phase_cli(
         device, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "chip_smoke_cli"))
@@ -609,11 +753,17 @@ def main() -> int:
         origin[k] = "phases 5-7"
     for k in set(TC_FORMS) - set(TC_SOLVE_KERNELS):
         launches[k], origin[k] = kern[k][3], "phase 3"
+    # no single PyTorch call computes a windowed neighbour sum, so no
+    # kernel has a library time
     report = [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
          "launches_from": origin[k], "max_abs_err": kern[k][0],
-         "ms": kern[k][1], "plain_ms": kern[k][2]}
+         "ms": kern[k][1], "plain_ms": kern[k][2], "bound_ms": kern[k][4],
+         "bound_by": kern[k][5], "library_ms": None,
+         **({} if kern[k][6] is None else {
+             f"ms_step{SETTLED_STEP}": kern[k][6]}),
+         f"bound_ms_step{SETTLED_STEP}": kern[k][7]}
         for k in KERNELS
     ]
     if any(r["launches"] <= 0 for r in report):

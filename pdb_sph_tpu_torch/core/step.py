@@ -14,10 +14,11 @@ comes back cell-sorted; `ids` carries each particle's spawn index.
 `diagnostics_fn` measures a state (density, speed, escapes, NaN) for the
 runner's metrics.
 
-A `Stepper` holds the config, the device and the two ping-pong buffers the
-solve reuses from step to step. A `Rollout` runs many steps as a Python
-loop with no host synchronisation inside it, summing the per-step stats
-vector [table_overflow, plan_overflow, nonfinite] on the device.
+A `Stepper` holds the config, the device (the card unless the caller asks
+for the CPU), and what the solve reuses from step to step: the two
+ping-pong buffers and the FP32 kernels' scratch. A `Rollout` runs many
+steps as a Python loop with no host synchronisation inside it, summing the
+per-step stats vector [table_overflow, plan_overflow, nonfinite] on the device.
 """
 
 from __future__ import annotations
@@ -66,11 +67,13 @@ def sort_cells(cfg: SimConfig, cid: torch.Tensor):
 
 def step_fn(cfg: SimConfig, backend: str, state: SimState,
             bufs: tuple[torch.Tensor, torch.Tensor] | None = None,
-            with_stats: bool = False, mark: Mark | None = None):
+            with_stats: bool = False, mark: Mark | None = None,
+            scratch: cuda_pbf.PairScratch | None = None):
     """One step. with_stats=True also returns the (3,) int32 vector
     [table_overflow, plan_overflow, nonfinite] (both overflows are 0: no
     structure of the port has a capacity). `mark(name)`, if given, is
-    called after each stage, for stage timing."""
+    called after each stage, for stage timing. `bufs` and `scratch` are
+    the solve's (cuda_pbf.solve)."""
     backend = resolve_backend(backend)
     if mark is None:
         def mark(_name):
@@ -93,7 +96,7 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     plan = cuda_pbf.build_plan(cfg, sorted_cid)
     mark("plan")
 
-    p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark)
+    p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch)
     x, v = finalize(cfg, p_solved, last_s)
     mark("finalize")
 
@@ -146,17 +149,21 @@ class Stepper:
     """SimState -> SimState for one config, backend and device."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         cfg.validate()
         self.cfg = cfg
         self.backend = resolve_backend(backend)
         self.device = resolve_device(device)
-        self.bufs = None
+        self.bufs = self.scratch = None
         if self.backend == "window":
             n_pad = cuda_pbf.pad_to_chunks(cfg, cfg.n)
             self.bufs = tuple(
                 torch.zeros((n_pad, 4), dtype=torch.float32,
                             device=self.device) for _ in range(2))
+            # only the card's kernels write a scratch
+            if self.device.type == "cuda":
+                self.scratch = cuda_pbf.alloc_scratch(cfg, n_pad,
+                                                      self.device)
 
     def step(self, state: SimState, with_stats: bool = False,
              mark: Mark | None = None):
@@ -167,7 +174,8 @@ class Stepper:
             raise ValueError(f"state on {state.x.device}, stepper on "
                              f"{self.device}")
         return step_fn(self.cfg, self.backend, state, self.bufs,
-                       with_stats=with_stats, mark=mark)
+                       with_stats=with_stats, mark=mark,
+                       scratch=self.scratch)
 
     def __call__(self, state: SimState) -> SimState:
         return self.step(state)
@@ -179,7 +187,7 @@ class Rollout:
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  unroll_steps: int = 1, with_stats: bool = False,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if unroll_steps < 1:
             raise ValueError(f"unroll_steps must be >= 1, got {unroll_steps}")
         self.stepper = Stepper(cfg, backend, device)
@@ -200,11 +208,11 @@ class Rollout:
 
 
 def make_step(cfg: SimConfig, backend: str = "auto",
-              device: torch.device | str = "cpu") -> Stepper:
+              device: torch.device | str = "cuda") -> Stepper:
     return Stepper(cfg, backend, device)
 
 
 def make_rollout(cfg: SimConfig, backend: str = "auto", unroll_steps: int = 1,
                  with_stats: bool = False,
-                 device: torch.device | str = "cpu") -> Rollout:
+                 device: torch.device | str = "cuda") -> Rollout:
     return Rollout(cfg, backend, unroll_steps, with_stats, device)

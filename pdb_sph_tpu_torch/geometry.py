@@ -1,14 +1,16 @@
 """Block geometry of the hand-written CUDA window kernels.
 
 The CUDA counterpart of `pdb_sph_tpu.geometry.KernelGeometry`. The FP32
-kernels in `csrc/pbf_window.cu` launch one thread block per own-chunk of
-`own` consecutive cell-sorted particles, one thread per own particle; the
-tensor-core kernels in `csrc/pbf_tc.cu` launch one block per own-chunk with
-one warp per 16 own rows. Both stream the chunk's candidate windows through
-shared memory `tile` particles at a time. Nothing of the TPU geometry's
-lane-alignment machinery (shifted copies, 128-lane segments, DMA ring depth,
-grid batching) has a counterpart here: the windows are exact element ranges
-and the loads are plain coalesced 16-byte reads.
+kernels in `csrc/pbf_window.cu` split each own-chunk's candidates into
+segments of at most `seg` candidates and run one work item per (chunk,
+segment) on a persistent grid of four-warp blocks: each lane holds
+`own / 32` own rows, the four warps share the candidates, and the
+candidates stream through a ring of `STAGES` shared-memory stages of
+`STAGE_LEN` rows. The tensor-core kernels in `csrc/pbf_tc.cu` launch one
+block per own-chunk with one warp per 16 own rows and stream `tile`
+candidates per round. Nothing of the TPU geometry's lane-alignment
+machinery (shifted copies, 128-lane segments, DMA ring depth, grid
+batching) has a counterpart here: the windows are exact element ranges.
 
 The geometry is data, threaded through the config like every other
 constant. `geometry_from_env()` is `SimConfig.geom`'s default factory, as in
@@ -22,9 +24,15 @@ from __future__ import annotations
 import dataclasses
 import os
 
-# candidates staged per tile; the kernels use dynamic shared memory without
-# raising the 48 KiB default opt-in limit
+# the kernels use dynamic shared memory without raising the 48 KiB default
+# opt-in limit
 _MAX_SMEM_BYTES = 48 * 1024
+# the FP32 kernels' block: WARPS warps share each ring stage of STAGE_LEN
+# candidates, STAGES stages in flight (kWarps, kStageLen and kStages in
+# csrc/pbf_window.cu)
+WARPS = 4
+STAGES = 3
+STAGE_LEN = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,16 +46,14 @@ class KernelGeometry:
     bf16 hi/lo split dot (`mxu_rd2`, density), and the project pass's rd2
     and delta-p contraction on the tensor cores (`mxu_proj`)."""
 
-    own: int = 64    # own-chunk rows = threads per block (FP32 kernels)
-    tile: int = 128  # candidates staged in shared memory per round
+    own: int = 64    # own-chunk rows (FP32 kernels: own / 32 per lane)
+    tile: int = 128  # candidates staged per round (tensor-core kernels)
+    # the FP32 kernels' candidates per work item (the segment length S),
+    # chosen by the sweep of benchmarks_torch/kernel_ab.py (PERF.md, PR 4)
+    seg: int = 512
     mxu_sum: bool = False
     mxu_rd2: bool = False
     mxu_proj: bool = False
-
-    @property
-    def threads(self) -> int:
-        """Threads per block of the FP32 kernels: one per own row."""
-        return self.own
 
     @property
     def tc_threads(self) -> int:
@@ -57,9 +63,11 @@ class KernelGeometry:
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory per block of the FP32 kernels: `tile`
-        float4 candidates."""
-        return self.tile * 16
+        """Dynamic shared memory per block of the FP32 kernels: the ring of
+        STAGES stages of float4 candidates and a float4 partial per own row
+        and warp, after the stages' barriers (`window_smem_bytes` in
+        csrc/pbf_window.cu)."""
+        return 32 + 16 * (STAGES * STAGE_LEN + WARPS * self.own)
 
     @property
     def tc_smem_bytes(self) -> int:
@@ -79,6 +87,9 @@ class KernelGeometry:
         if self.tile <= 0 or self.tile % 32 != 0:
             raise ValueError(f"tile ({self.tile}) must be a positive "
                              "multiple of 32")
+        if self.seg <= 0 or self.seg % 32 != 0:
+            raise ValueError(f"seg ({self.seg}) must be a positive multiple "
+                             "of 32")
         smem = max(self.smem_bytes, self.tc_smem_bytes)
         if smem > _MAX_SMEM_BYTES:
             raise ValueError(f"tile ({self.tile}) needs {smem} bytes of "

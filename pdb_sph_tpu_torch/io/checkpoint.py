@@ -35,6 +35,7 @@ from .. import interop
 from ..config import SimConfig
 from ..geometry import KernelGeometry
 from ..state import SimState
+from ..utils.platform import resolve_device
 
 FORMAT_VERSION = 1
 GEOM_KEY = "torch_geom_json"
@@ -71,9 +72,10 @@ def save(path: str, cfg: SimConfig, state: SimState) -> None:
         raise
 
 
-def load(path: str, device: torch.device | str = "cpu"
+def load(path: str, device: torch.device | str = "cuda"
          ) -> tuple[SimConfig, SimState]:
-    """(config, state on `device`) from a checkpoint of either package."""
+    """(config, state on `device`, the card unless the caller asks for the
+    CPU) from a checkpoint of either package."""
     with np.load(path, allow_pickle=False) as z:
         version = int(z["format_version"])
         if version != FORMAT_VERSION:
@@ -88,4 +90,5 @@ def load(path: str, device: torch.device | str = "cpu"
     if arrays[0].shape != (cfg.n, 3):
         raise ValueError(f"checkpoint shape {arrays[0].shape} inconsistent "
                          f"with n={cfg.n}")
-    return cfg, interop.state_from_numpy(*arrays, device=device)
+    return cfg, interop.state_from_numpy(*arrays,
+                                         device=resolve_device(device))

@@ -2,7 +2,8 @@
 
 The same three scenes as `pdb_sph_tpu/models/scenes.py`, box-relative in
 the same way, drawn from a seeded `torch.Generator` on the CPU and then
-moved to `device`, so a seed gives the same particles on every device.
+moved to `device` (the card by default), so a seed gives the same
+particles on every device.
 `torch` and `jax.random` give different numbers for one seed: the two
 packages agree in distribution, not bit for bit.
 """
@@ -13,6 +14,7 @@ import torch
 
 from ..config import SimConfig
 from ..state import SimState, make_state
+from ..utils.platform import resolve_device
 
 
 def standard(cfg: SimConfig, gen: torch.Generator) -> torch.Tensor:
@@ -44,9 +46,11 @@ SCENE_FNS = {
 
 
 def spawn(cfg: SimConfig, scene: str, seed: int = 0,
-          device: torch.device | str = "cpu") -> SimState:
+          device: torch.device | str = "cuda") -> SimState:
+    """The scene's initial state on `device` (the card unless the caller
+    asks for the CPU)."""
     if scene not in SCENE_FNS:
         raise ValueError(f"unknown scene {scene!r}; have {sorted(SCENE_FNS)}")
     gen = torch.Generator(device="cpu").manual_seed(seed)
     x = SCENE_FNS[scene](cfg, gen).to(torch.float32)
-    return make_state(x.to(device))
+    return make_state(x.to(resolve_device(device)))

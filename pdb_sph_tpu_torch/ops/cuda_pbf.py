@@ -28,6 +28,16 @@ way and its delta-p as own3 * S - s @ cand3^T with s split too; `mxu_sum`
 takes the row sums on the tensor cores at float32 precision, which is the
 plain versions' `.sum(-1)` as a function.
 
+The FP32 kernels (`csrc/pbf_window.cu`) split the work into items of
+bounded size: the plan also cuts each chunk's candidates, the virtual
+concatenation of its nine ranges, into segments of `seg_len` candidates and
+gives the exclusive prefix of segments per chunk (`seg_prefix`); one item
+is one (chunk, segment). Each item's row sums go to a scratch slot
+(`PairScratch`, which the caller may allocate once and pass on), and the
+chunk's last item adds them in segment order. `split=True` on the plain
+FP32 versions takes the row sums the same way (`segment_sum`), so the CPU
+tests can hold the split against the unsplit sum.
+
 Each pass is a wrapper that dispatches on the tensor's device: a CPU tensor
 goes to the plain torch version beside it (`*_ref`), a CUDA tensor launches
 the hand-written kernel, or raises: `csrc/pbf_window.cu` in the default
@@ -58,6 +68,11 @@ LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0,
 
 # (own rows x candidates) pair elements per batch of the plain versions
 _REF_PAIRS_PER_BATCH = 1 << 22
+# work items the FP32 kernels' scratch holds, per own-chunk (a float4 per
+# own row of each: 16 KiB a chunk at own 64): a plan whose candidates would
+# need more items at the geometry's `seg` takes longer segments instead
+# (work_table), so no candidate is dropped
+ITEMS_PER_CHUNK = 16
 
 
 def reset_launches() -> None:
@@ -74,10 +89,45 @@ class WindowPlan(NamedTuple):
         the JAX layout [table_overflow, plan_overflow, nonfinite]: the plan
         has no capacity, since the kernels loop over each range whatever
         its length, so nothing can be truncated.
+    seg_prefix: (num_chunks + 1,) int32 — the FP32 kernels' work table:
+        chunk c owns items seg_prefix[c] .. seg_prefix[c + 1] - 1, one per
+        segment of seg_len candidates (at least one, so an all-pad chunk's
+        item writes its rows); seg_prefix[-1] is the item count.
+    seg_len: () int32 — candidates per segment: the geometry's `seg`, or
+        the least length that keeps the items within the scratch's
+        ITEMS_PER_CHUNK * num_chunks.
     """
 
     ranges: torch.Tensor
     n_overflow: torch.Tensor
+    seg_prefix: torch.Tensor | None = None
+    seg_len: torch.Tensor | None = None
+
+
+class PairScratch(NamedTuple):
+    """What the FP32 kernels write between their items: the kernel itself
+    allocates nothing.
+
+    partials: (ITEMS_PER_CHUNK * n_pad, 4) float32 — one float4 of row sums
+        per own row of each item of a chunk with several items.
+    counters: (num_chunks + 2,) int32 — per-chunk arrivals, then the next
+        item to take and the blocks done; 0 before a launch, and each launch
+        leaves them at 0.
+    """
+
+    partials: torch.Tensor
+    counters: torch.Tensor
+
+
+def alloc_scratch(cfg: SimConfig, n_pad: int,
+                  device: torch.device | str) -> PairScratch:
+    """The FP32 kernels' scratch for (n_pad, 4) inputs, counters zeroed."""
+    num_chunks = n_pad // cfg.geom.own
+    return PairScratch(
+        partials=torch.empty((ITEMS_PER_CHUNK * n_pad, 4),
+                             dtype=torch.float32, device=device),
+        counters=torch.zeros((num_chunks + 2,), dtype=torch.int32,
+                             device=device))
 
 
 def pad_to_chunks(cfg: SimConfig, n: int) -> int:
@@ -138,9 +188,31 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     start = torch.where(is_pad, torch.zeros_like(start), start)
     end = torch.where(is_pad, torch.zeros_like(end), end)
     ranges = torch.stack([start, end], dim=-1).contiguous()
+    seg_len, seg_prefix = work_table(cfg, (end - start).sum(dim=1))
     return WindowPlan(ranges=ranges,
                       n_overflow=torch.zeros((), dtype=torch.int32,
-                                             device=dev))
+                                             device=dev),
+                      seg_prefix=seg_prefix, seg_len=seg_len)
+
+
+def work_table(cfg: SimConfig, cand: torch.Tensor):
+    """(seg_len () int32, seg_prefix (chunks + 1,) int32) for chunks of
+    `cand` candidates each, on the device, with no host read.
+
+    seg_len is the geometry's `seg` unless the candidates would need more
+    than ITEMS_PER_CHUNK * chunks items; then it is the least length that
+    fits: sum(max(1, ceil(cand / L))) <= chunks + total / L <= capacity."""
+    chunks = cand.shape[0]
+    spare = ITEMS_PER_CHUNK * chunks - chunks  # items beyond one a chunk
+    total = cand.sum(dtype=torch.int64)
+    seg_len = ((total + (spare - 1)) // spare).clamp_(min=cfg.geom.seg)
+    seg_len = seg_len.to(torch.int32)
+    # ceil(cand / seg_len), and one item for a chunk without candidates
+    items = ((cand - 1) // seg_len + 1).clamp_(min=1)
+    seg_prefix = torch.zeros((chunks + 1,), dtype=torch.int32,
+                             device=cand.device)
+    torch.cumsum(items, 0, dtype=torch.int32, out=seg_prefix[1:])
+    return seg_len, seg_prefix
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +311,31 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
         yield c0 * own, mine, d, rd2, mask[:, None, :], cand
 
 
+def segment_sum(terms: torch.Tensor, seg_len: int) -> torch.Tensor:
+    """Sums over the last axis, a chunk's candidates in plan order, as the
+    FP32 kernels split them: a partial sum per segment of seg_len
+    candidates, the partials then added in segment order."""
+    count = terms.shape[-1]
+    if count <= seg_len:
+        return terms.sum(dim=-1)
+    nseg = -(-count // seg_len)
+    parts = torch.nn.functional.pad(terms, (0, nseg * seg_len - count))
+    parts = parts.unflatten(-1, (nseg, seg_len)).sum(dim=-1)
+    acc = parts[..., 0]
+    for k in range(1, nseg):
+        acc = acc + parts[..., k]
+    return acc
+
+
+def _row_sum(plan: WindowPlan, split: bool):
+    """The plain versions' row sum: `.sum(-1)`, or with `split` the
+    kernels' `segment_sum` over the plan's segments."""
+    if not split:
+        return lambda t: t.sum(dim=-1)
+    seg_len = int(plan.seg_len)
+    return lambda t: segment_sum(t, seg_len)
+
+
 def _store(out: torch.Tensor, row0: int, rows: torch.Tensor, n: int) -> None:
     """Write a batch's (b, own, 4) results to out rows [row0, n)."""
     rows = rows.reshape(-1, 4)
@@ -247,15 +344,21 @@ def _store(out: torch.Tensor, row0: int, rows: torch.Tensor, n: int) -> None:
 
 
 def density_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
-                     n: int, out: torch.Tensor | None = None) -> torch.Tensor:
+                     n: int, out: torch.Tensor | None = None,
+                     split: bool = False) -> torch.Tensor:
     """Plain torch version of the density kernels: (n_pad, 4) positions ->
     (n_pad, 4) with column 3 = lambda for the first n rows. rd2 takes the
     split-dot form when `cfg.geom.mxu_rd2`; the row sums are `.sum(-1)`,
-    also the plain version of `mxu_sum`."""
+    also the plain version of `mxu_sum`, or with `split` the FP32 kernel's
+    segment sums (`segment_sum`)."""
+    if split and (cfg.geom.mxu_rd2 or cfg.geom.mxu_sum):
+        raise ValueError("split sums are the FP32 kernel's; a tensor-core "
+                         "switch of the density pass is on")
     if out is None:
         out = torch.zeros_like(p4)
     h, h2 = f32(cfg.h), f32(cfg.h2)
     l2 = f32(cfg.lambda_grad_coeff * cfg.lambda_grad_coeff)
+    row_sum = _row_sum(plan, split)
     for row0, mine, _, rd2, mask, _ in _pair_blocks(
             cfg, p4, plan, n, split_rd2=cfg.geom.mxu_rd2):
         t = h2 - rd2
@@ -263,8 +366,8 @@ def density_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
         t2 = t * t
         u2 = u * u
         zero = torch.zeros_like(rd2)
-        s_rho = torch.where(mask, t2 * t, zero).sum(dim=-1)
-        s_g2 = torch.where(mask, (u2 * u2) * rd2, zero).sum(dim=-1)
+        s_rho = row_sum(torch.where(mask, t2 * t, zero))
+        s_g2 = row_sum(torch.where(mask, (u2 * u2) * rd2, zero))
         lam = smoothing.lambda_from_sums(
             cfg, f32(cfg.poly6_coeff) * s_rho, l2 * s_g2)
         _store(out, row0, torch.cat([mine[..., :3], lam[..., None]], -1), n)
@@ -272,30 +375,39 @@ def density_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
 
 
 def density_rho_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
-                    n: int, out: torch.Tensor | None = None) -> torch.Tensor:
+                    n: int, out: torch.Tensor | None = None,
+                    split: bool = False) -> torch.Tensor:
     """Plain torch version of the density kernel's rho output: (n_pad, 4)
-    positions -> (n_pad, 4) with column 3 = rho for the first n rows."""
+    positions -> (n_pad, 4) with column 3 = rho for the first n rows; with
+    `split`, the kernel's segment sums."""
     if out is None:
         out = torch.zeros_like(p4)
     h2 = f32(cfg.h2)
+    row_sum = _row_sum(plan, split)
     for row0, mine, _, rd2, mask, _ in _pair_blocks(cfg, p4, plan, n):
         t = h2 - rd2
-        s_rho = torch.where(mask, (t * t) * t, torch.zeros_like(rd2)).sum(-1)
+        s_rho = row_sum(torch.where(mask, (t * t) * t, torch.zeros_like(rd2)))
         rho = f32(cfg.poly6_coeff) * s_rho
         _store(out, row0, torch.cat([mine[..., :3], rho[..., None]], -1), n)
     return out
 
 
 def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
-                     n: int, out: torch.Tensor | None = None) -> torch.Tensor:
+                     n: int, out: torch.Tensor | None = None,
+                     split: bool = False) -> torch.Tensor:
     """Plain torch version of the project kernels: (n_pad, 4) positions with
     lambda -> (n_pad, 4) projected positions, lambda carried through, for
     the first n rows. With `cfg.geom.mxu_proj` it follows
     `_project_kernel_mxu` (pallas_pbf.py:525-582): split-dot rd2, and
     own3 + k * (own3 * S - acc_p) with S the row sums of s and acc_p the
-    split product of s and the candidates' positions."""
+    split product of s and the candidates' positions. `split` takes the
+    FP32 form's sums as its kernel's segment sums."""
+    if split and (cfg.geom.mxu_proj or cfg.geom.mxu_sum):
+        raise ValueError("split sums are the FP32 kernel's; a tensor-core "
+                         "switch of the project pass is on")
     if out is None:
         out = torch.zeros_like(p4)
+    row_sum = _row_sum(plan, split)
     h = f32(cfg.h)
     k_proj = f32(-cfg.spiky_grad_coeff * cfg.inv_rho0)
     s_corr = f32(cfg.s_corr)
@@ -313,7 +425,7 @@ def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
             moved = own3 + k_proj * (own3 * s.sum(dim=-1)[..., None] - acc_p)
             moved = moved.unbind(-1)
         else:
-            moved = [mine[..., a] + k_proj * (s * d[a]).sum(dim=-1)
+            moved = [mine[..., a] + k_proj * row_sum(s * d[a])
                      for a in range(3)]
         _store(out, row0, torch.stack([*moved, mine[..., 3]], dim=-1), n)
     return out
@@ -349,11 +461,29 @@ def _check(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
         raise ValueError("out must not alias p4: other blocks still read it")
 
 
-def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
-            plan: WindowPlan, n: int, out: torch.Tensor | None,
-            consts: tuple, threads: int | None = None) -> torch.Tensor:
-    """Launch `fn_name` with (p4, out, ranges, n, chunks, threads, tile,
-    *consts, stream); `threads` defaults to the FP32 kernels' own."""
+def _check_work(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
+                scratch: PairScratch) -> None:
+    """The FP32 kernels' extra inputs: the plan's work table and the
+    scratch, shaped for p4 and on its device."""
+    n_pad = p4.shape[0]
+    num_chunks = n_pad // cfg.geom.own
+    want = {
+        "plan.seg_prefix": (plan.seg_prefix, (num_chunks + 1,), torch.int32),
+        "plan.seg_len": (plan.seg_len, (), torch.int32),
+        "scratch.partials": (scratch.partials, (ITEMS_PER_CHUNK * n_pad, 4),
+                             torch.float32),
+        "scratch.counters": (scratch.counters, (num_chunks + 2,),
+                             torch.int32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if t is None or tuple(t.shape) != shape or t.dtype != dtype \
+                or t.device != p4.device or not t.is_contiguous():
+            got = None if t is None else (tuple(t.shape), t.dtype, t.device)
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"on {p4.device}, got {got}")
+
+
+def _kernels_and_out(p4: torch.Tensor, out: torch.Tensor | None):
     from ..utils.cuda_build import load_kernels
 
     if p4.device.type != "cuda":
@@ -364,89 +494,140 @@ def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
     for t in (p4, out):
         if t.data_ptr() % 16:
             raise ValueError("the kernels read and write 16-byte float4 rows")
-    g = cfg.geom
-    stream = torch.cuda.current_stream(p4.device).cuda_stream
+    return kernels, out, torch.cuda.current_stream(p4.device).cuda_stream
+
+
+def _launch_window(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
+                   plan: WindowPlan, n: int, out: torch.Tensor | None,
+                   scratch: PairScratch | None, consts: tuple
+                   ) -> torch.Tensor:
+    """Launch the FP32 kernel `fn_name` (csrc/pbf_window.cu) with (p4, out,
+    ranges, seg_prefix, seg_len, partials, counters, n, chunks, own,
+    *consts, stream)."""
+    kernels, out, stream = _kernels_and_out(p4, out)
+    if scratch is None:
+        scratch = alloc_scratch(cfg, p4.shape[0], p4.device)
+    _check_work(cfg, p4, plan, scratch)
     code = getattr(kernels.lib, fn_name)(
-        p4.data_ptr(), out.data_ptr(), plan.ranges.data_ptr(), n,
-        plan.ranges.shape[0], threads or g.threads, g.tile, *consts, stream)
+        p4.data_ptr(), out.data_ptr(), plan.ranges.data_ptr(),
+        plan.seg_prefix.data_ptr(), plan.seg_len.data_ptr(),
+        scratch.partials.data_ptr(), scratch.counters.data_ptr(), n,
+        plan.ranges.shape[0], cfg.geom.own, *consts, stream)
     kernels.check(code, fn_name)
     LAUNCHES[name] += 1
     return out
 
 
+def _launch_tc(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
+               plan: WindowPlan, n: int, out: torch.Tensor | None,
+               consts: tuple) -> torch.Tensor:
+    """Launch the tensor-core kernel `fn_name` (csrc/pbf_tc.cu) with (p4,
+    out, ranges, n, chunks, threads, tile, *consts, stream)."""
+    kernels, out, stream = _kernels_and_out(p4, out)
+    g = cfg.geom
+    code = getattr(kernels.lib, fn_name)(
+        p4.data_ptr(), out.data_ptr(), plan.ranges.data_ptr(), n,
+        plan.ranges.shape[0], g.tc_threads, g.tile, *consts, stream)
+    kernels.check(code, fn_name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def density_consts(cfg: SimConfig) -> tuple:
+    """The density kernels' float constants: (h, h^2, eps, poly6, l2,
+    1 / rho0, relaxation eps)."""
+    return (f32(cfg.h), f32(cfg.h2), f32(EPS), f32(cfg.poly6_coeff),
+            f32(cfg.lambda_grad_coeff * cfg.lambda_grad_coeff),
+            f32(cfg.inv_rho0), f32(cfg.relaxation_eps))
+
+
+def rho_consts(cfg: SimConfig) -> tuple:
+    """The rho output's float constants: (h^2, eps, poly6)."""
+    return f32(cfg.h2), f32(EPS), f32(cfg.poly6_coeff)
+
+
+def project_consts(cfg: SimConfig) -> tuple:
+    """The project kernels' float constants: (h, h^2, eps, k, s_corr)."""
+    return (f32(cfg.h), f32(cfg.h2), f32(EPS),
+            f32(-cfg.spiky_grad_coeff * cfg.inv_rho0), f32(cfg.s_corr))
+
+
 def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
+                 out: torch.Tensor | None = None,
+                 scratch: PairScratch | None = None) -> torch.Tensor:
     """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, lambda), first n rows.
 
     The port of K1, `_density_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:424),
     with its `mxu_rd2` branch (:445) and `_ksum`'s `mxu_sum` (:318).
-    CPU: density_pass_ref. CUDA: density_lambda_kernel in the default
-    geometry, density_tc_kernel<mxu_rd2, mxu_sum> when either is on; or
+    CPU: density_pass_ref. CUDA: window_kernel<kLambda> in the default
+    geometry (its scratch allocated here when `scratch` is None),
+    density_tc_kernel<mxu_rd2, mxu_sum> when either switch is on; or
     raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return density_pass_ref(cfg, p4, plan, n, out)
-    consts = (f32(cfg.h), f32(cfg.h2), f32(EPS), f32(cfg.poly6_coeff),
-              f32(cfg.lambda_grad_coeff * cfg.lambda_grad_coeff),
-              f32(cfg.inv_rho0), f32(cfg.relaxation_eps))
+    consts = density_consts(cfg)
     g = cfg.geom
     if g.mxu_rd2 or g.mxu_sum:
         name = "density_tc" + "_rd2" * g.mxu_rd2 + "_sum" * g.mxu_sum
-        return _launch(name, "launch_density_tc", cfg, p4, plan, n, out,
-                       (int(g.mxu_rd2), int(g.mxu_sum), *consts),
-                       threads=g.tc_threads)
-    return _launch("density_lambda", "launch_density_lambda", cfg, p4, plan,
-                   n, out, consts)
+        return _launch_tc(name, "launch_density_tc", cfg, p4, plan, n, out,
+                          (int(g.mxu_rd2), int(g.mxu_sum), *consts))
+    return _launch_window("density_lambda", "launch_density_lambda", cfg, p4,
+                          plan, n, out, scratch, consts)
 
 
 def density_rho(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                scratch: PairScratch | None = None) -> torch.Tensor:
     """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, rho), first n rows.
 
-    The diagnostic density through K1's body (its kRho instantiation), in
+    The diagnostic density through K1's kernel (its kRho instantiation), in
     float32 whatever the geometry's tensor-core switches say.
-    CPU: density_rho_ref. CUDA: density_lambda_kernel<kRho>, or raise."""
+    CPU: density_rho_ref. CUDA: window_kernel<kRho>, or raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return density_rho_ref(cfg, p4, plan, n, out)
-    consts = (f32(cfg.h2), f32(EPS), f32(cfg.poly6_coeff))
-    return _launch("density_rho", "launch_density_rho", cfg, p4, plan, n,
-                   out, consts)
+    consts = rho_consts(cfg)
+    return _launch_window("density_rho", "launch_density_rho", cfg, p4, plan,
+                          n, out, scratch, consts)
 
 
 def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
+                 out: torch.Tensor | None = None,
+                 scratch: PairScratch | None = None) -> torch.Tensor:
     """(n_pad, 4) positions with lambda -> projected (n_pad, 4), first n
     rows, lambda carried through.
 
     The port of K2, `_project_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:477),
     with `_project_kernel_mxu` (:525) and `_ksum`'s `mxu_sum` (:318).
-    CPU: project_pass_ref. CUDA: project_kernel in the default geometry,
-    project_tc_kernel<mxu_proj, mxu_sum> when either is on; or raise."""
+    CPU: project_pass_ref. CUDA: window_kernel<kProject> in the default
+    geometry, project_tc_kernel<mxu_proj, mxu_sum> when either switch is
+    on; or raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return project_pass_ref(cfg, p4, plan, n, out)
-    consts = (f32(cfg.h), f32(cfg.h2), f32(EPS),
-              f32(-cfg.spiky_grad_coeff * cfg.inv_rho0), f32(cfg.s_corr))
+    consts = project_consts(cfg)
     g = cfg.geom
     if g.mxu_proj or g.mxu_sum:
         name = "project_tc" + "_proj" * g.mxu_proj + "_sum" * g.mxu_sum
-        return _launch(name, "launch_project_tc", cfg, p4, plan, n, out,
-                       (int(g.mxu_proj), int(g.mxu_sum), *consts),
-                       threads=g.tc_threads)
-    return _launch("project", "launch_project", cfg, p4, plan, n, out, consts)
+        return _launch_tc(name, "launch_project_tc", cfg, p4, plan, n, out,
+                          (int(g.mxu_proj), int(g.mxu_sum), *consts))
+    return _launch_window("project", "launch_project", cfg, p4, plan, n, out,
+                          scratch, consts)
 
 
 def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
           bufs: tuple[torch.Tensor, torch.Tensor] | None = None,
-          mark=None) -> torch.Tensor:
+          mark=None, scratch: PairScratch | None = None) -> torch.Tensor:
     """solver_iters Jacobi iterations of density -> project over the plan.
 
     p_sorted: (n, 3) cell-sorted predicted positions. `bufs`, two
     (n_pad, 4) float32 buffers the caller reuses across steps (allocated
     here when None), carry the ping-pong; their rows past n are never read.
-    Returns an (n, 3) view of the first buffer. `mark(name)`, if given, is
-    called after each pass (stage timing)."""
+    `scratch`, the FP32 kernels' scratch, is likewise the caller's to keep
+    (allocated per pass on a card when None). Returns an (n, 3) view of the
+    first buffer. `mark(name)`, if given, is called after each pass (stage
+    timing)."""
     n = p_sorted.shape[0]
     if bufs is None:
         n_pad = pad_to_chunks(cfg, n)
@@ -455,10 +636,10 @@ def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
     a, b = bufs
     a[:n, :3] = p_sorted
     for _ in range(cfg.solver_iters):
-        density_pass(cfg, a, plan, n, out=b)
+        density_pass(cfg, a, plan, n, out=b, scratch=scratch)
         if mark is not None:
             mark("density")
-        project_pass(cfg, b, plan, n, out=a)
+        project_pass(cfg, b, plan, n, out=a, scratch=scratch)
         if mark is not None:
             mark("project")
     return a[:n, :3]

@@ -1,13 +1,13 @@
-"""Host rasterizer of the port: the JAX package's native point-sprite
-rasterizer through ctypes, with the same NumPy path where no C++ compiler
-is found.
+"""Host rasterizer of the port: a native point-sprite rasterizer through
+ctypes, with the same NumPy path where no C++ compiler is found.
 
-The counterpart of `pdb_sph_tpu/render/renderer.py`. It compiles that
-package's `render/cpp/rasterizer.cpp` from its path (no second copy of the
-source), at first use, into `build/render/` under the repository root
-(listed in `.gitignore`), and never writes into the JAX tree. It does not
-import `pdb_sph_tpu`, whose package `__init__` imports jax. Rendering runs
-on the host from numpy positions; it is not the device path.
+The counterpart of `pdb_sph_tpu/render/renderer.py`. Its source,
+`cpp/rasterizer.cpp` beside this module, is a byte-for-byte copy of the
+JAX package's (tests/test_torch_isolation.py holds the two equal), so both
+packages draw the same pixels; the port reads no file of the JAX package.
+It is compiled at first use into `build/render/` under the repository root
+(listed in `.gitignore`). Rendering runs on the host from numpy positions;
+it is not the device path.
 """
 
 from __future__ import annotations
@@ -21,9 +21,8 @@ from pathlib import Path
 
 import numpy as np
 
-_REPO = Path(__file__).resolve().parents[2]
-SOURCE = _REPO / "pdb_sph_tpu" / "render" / "cpp" / "rasterizer.cpp"
-BUILD_DIR = _REPO / "build" / "render"
+SOURCE = Path(__file__).resolve().parent / "cpp" / "rasterizer.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "render"
 # the JAX package's lazy-build flags (pdb_sph_tpu/render/renderer.py:37-40),
 # so both packages draw the same pixels
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")

@@ -36,10 +36,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every launcher: pointers and the stream as void*, so ctypes
 # never truncates them to a 32-bit int
 SIGNATURES = {
-    "launch_density_lambda": (_P, _P, _P, _I, _I, _I, _I,
+    # (pin, pout, ranges, seg_prefix, seg_len, partials, counters, n,
+    #  chunks, own, constants..., stream)
+    "launch_density_lambda": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _F, _F, _F, _F, _F, _F, _F, _P),
-    "launch_density_rho": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
-    "launch_project": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    "launch_density_rho": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _F, _F, _F, _P),
+    "launch_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _P),
+    # (pin, pout, ranges, n, chunks, threads, tile, switches, constants...,
+    #  stream)
     "launch_density_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _P),
     "launch_project_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -81,7 +81,7 @@ def test_run_and_resume_give_the_jax_records(tmp_path, jax_run):
     assert sorted(os.listdir(tmp_path / "fr")) == [
         "frame_000000.png", "frame_000002.png", "frame_000004.png"]
     assert open(tmp_path / "a.gif", "rb").read(6) == b"GIF89a"
-    cfg, state = checkpoint.load(ck)
+    cfg, state = checkpoint.load(ck, device="cpu")
     assert int(state.step) == 6 and cfg.n == 256
 
 
@@ -94,12 +94,12 @@ def test_resume_continues_a_jax_checkpoint(tmp_path, jax_run):
     assert rc == 0
     steps = [r["step"] for r in _lines(metrics) if r["event"] == "progress"]
     assert steps == [8, 10]  # the JAX run and its resume ended at step 6
-    assert int(checkpoint.load(ck)[1].step) == 10
+    assert int(checkpoint.load(ck, device="cpu")[1].step) == 10
 
 
 def test_nan_checkpoint_aborts_with_rc2(tmp_path):
     cfg = default_config(n=256)
-    state = spawn(cfg, "standard", seed=0)
+    state = spawn(cfg, "standard", seed=0, device="cpu")
     x = state.x.clone()
     x[3, 2] = float("nan")
     ck = str(tmp_path / "nan.npz")
@@ -154,7 +154,7 @@ def test_dense_backend_runs_and_matches_the_window_backend(tmp_path):
     """Both backends from one checkpoint, 2 steps: the same particles."""
     ck = str(tmp_path / "ck.npz")
     cfg = default_config(n=256)
-    checkpoint.save(ck, cfg, spawn(cfg, "standard", seed=4))
+    checkpoint.save(ck, cfg, spawn(cfg, "standard", seed=4, device="cpu"))
     out = {}
     for backend in ("window", "dense"):
         path = str(tmp_path / f"{backend}.npz")
@@ -162,7 +162,7 @@ def test_dense_backend_runs_and_matches_the_window_backend(tmp_path):
                          "--backend", backend, "--device", "cpu",
                          "--metrics", str(tmp_path / backend),
                          "--checkpoint", path]) == 0
-        _, st = checkpoint.load(path)
+        _, st = checkpoint.load(path, device="cpu")
         out[backend] = st.x.numpy()[np.argsort(st.ids.numpy())]
     np.testing.assert_allclose(out["window"], out["dense"], rtol=1e-4,
                                atol=1e-5)

@@ -78,8 +78,8 @@ def test_diagnostics_match_jax(stepped, kind):
 
 def test_diagnostics_leave_the_stepper_buffers_alone():
     cfg = default_config(n=256)
-    stepper = tstep.make_step(cfg, "window")
-    state = stepper(spawn(cfg, "dam_break", seed=3))
+    stepper = tstep.make_step(cfg, "window", device="cpu")
+    state = stepper(spawn(cfg, "dam_break", seed=3, device="cpu"))
     before = [b.clone() for b in stepper.bufs]
     tstep.diagnostics_fn(cfg, state)
     assert all(torch.equal(a, b) for a, b in zip(before, stepper.bufs))

@@ -43,13 +43,13 @@ def test_jax_checkpoint_loads_in_the_port_and_steps_alike(tmp_path):
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save(path, jcfg, st)
 
-    cfg, state = checkpoint.load(path)
+    cfg, state = checkpoint.load(path, device="cpu")
     assert _fields(cfg) == _fields(jcfg)
     assert cfg.geom == KernelGeometry()  # the TPU geometry is dropped
     _assert_same_arrays(interop.state_to_numpy(state), st)
     assert state.step.dtype == torch.int32 and int(state.step) == 1
 
-    stepper = tstep.make_step(cfg, "window")
+    stepper = tstep.make_step(cfg, "window", device="cpu")
     for _ in range(3):
         st, state = jstep(st), stepper(state)
     x, v, ids, step = interop.state_to_numpy(state)
@@ -64,7 +64,8 @@ def test_jax_checkpoint_loads_in_the_port_and_steps_alike(tmp_path):
 
 def test_port_checkpoint_loads_in_the_jax_package(tmp_path):
     cfg = default_config(n=256, wall=2.5, s_corr=2e-4)
-    state = tstep.make_step(cfg, "window")(spawn(cfg, "standard", seed=2))
+    state = tstep.make_step(cfg, "window", device="cpu")(
+        spawn(cfg, "standard", seed=2, device="cpu"))
     path = str(tmp_path / "port.npz")
     checkpoint.save(path, cfg, state)
 
@@ -77,7 +78,7 @@ def test_port_checkpoint_loads_in_the_jax_package(tmp_path):
 def test_port_roundtrip_keeps_its_geometry(tmp_path):
     geom = KernelGeometry(own=128, tile=64)
     cfg = default_config(n=300, geom=geom)
-    state = spawn(cfg, "blowup", seed=1)
+    state = spawn(cfg, "blowup", seed=1, device="cpu")
     path = str(tmp_path / "sub" / "ck.npz")
     checkpoint.save(path, cfg, state)
     cfg2, state2 = checkpoint.load(path, device="cpu")
@@ -91,8 +92,8 @@ def test_port_roundtrip_keeps_the_tensor_core_switches(tmp_path):
     geom = KernelGeometry(mxu_rd2=True, mxu_proj=True, mxu_sum=True)
     cfg = default_config(n=256, geom=geom)
     path = str(tmp_path / "ck.npz")
-    checkpoint.save(path, cfg, spawn(cfg, "dam_break", seed=0))
-    cfg2, _ = checkpoint.load(path)
+    checkpoint.save(path, cfg, spawn(cfg, "dam_break", seed=0, device="cpu"))
+    cfg2, _ = checkpoint.load(path, device="cpu")
     assert cfg2 == cfg and cfg2.geom == geom
 
 
@@ -102,12 +103,12 @@ def test_geometry_without_switches_loads_with_them_off(tmp_path,
     monkeypatch.setenv("PBF_MXU_RD2", "1")  # the file's geometry wins
     cfg = default_config(n=64, geom=KernelGeometry(own=128, tile=64))
     path = str(tmp_path / "ck.npz")
-    checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0))
+    checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0, device="cpu"))
     with np.load(path) as z:
         data = dict(z)
     data[checkpoint.GEOM_KEY] = np.bytes_(b'{"own": 128, "tile": 64}')
     np.savez(path, **data)
-    cfg2, _ = checkpoint.load(path)
+    cfg2, _ = checkpoint.load(path, device="cpu")
     assert cfg2.geom == KernelGeometry(own=128, tile=64)
     assert not (cfg2.geom.mxu_rd2 or cfg2.geom.mxu_sum or cfg2.geom.mxu_proj)
 
@@ -119,34 +120,34 @@ def test_jax_checkpoint_with_switches_resumes_on_them(tmp_path):
     st = jpbf.spawn(jcfg, "dam_break", seed=3)
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save(path, jcfg, st)
-    cfg, state = checkpoint.load(path)
+    cfg, state = checkpoint.load(path, device="cpu")
     assert cfg.geom == KernelGeometry(mxu_rd2=True, mxu_proj=True,
                                       mxu_sum=True)
     _assert_same_arrays(interop.state_to_numpy(state), st)
     # and the port's resumed step runs the tensor-core forms' plain versions
     fp32 = dataclasses.replace(cfg, geom=KernelGeometry())
-    x_tc = tstep.make_step(cfg, "window")(state).x
-    x_fp = tstep.make_step(fp32, "window")(state).x
+    x_tc = tstep.make_step(cfg, "window", device="cpu")(state).x
+    x_fp = tstep.make_step(fp32, "window", device="cpu")(state).x
     assert torch.isfinite(x_tc).all() and not torch.equal(x_tc, x_fp)
 
 
 def test_checkpoint_refuses_a_wrong_version_or_shape(tmp_path):
     cfg = default_config(n=64)
     path = str(tmp_path / "ck.npz")
-    checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0))
+    checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0, device="cpu"))
     with np.load(path) as z:
         data = dict(z)
     np.savez(path, **{**data, "format_version": np.int32(2)})
     with pytest.raises(ValueError, match="version"):
-        checkpoint.load(path)
+        checkpoint.load(path, device="cpu")
     np.savez(path, **{**data, "x": data["x"][:32]})
     with pytest.raises(ValueError, match="shape"):
-        checkpoint.load(path)
+        checkpoint.load(path, device="cpu")
 
 
 def test_failed_save_leaves_no_temp_file(tmp_path, monkeypatch):
     cfg = default_config(n=64)
-    state = spawn(cfg, "standard", seed=0)
+    state = spawn(cfg, "standard", seed=0, device="cpu")
     path = tmp_path / "ck.npz"
     checkpoint.save(str(path), cfg, state)
     before = path.read_bytes()

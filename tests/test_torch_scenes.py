@@ -17,7 +17,7 @@ JCFG = jpbf.default_config(n=N)
 
 @pytest.mark.parametrize("scene", tpbf.SCENES)
 def test_scene_shapes_dtypes_and_moments(scene):
-    st = tpbf.spawn(TCFG, scene, seed=0)
+    st = tpbf.spawn(TCFG, scene, seed=0, device="cpu")
     assert st.x.shape == (N, 3) and st.x.dtype == torch.float32
     assert st.v.shape == (N, 3) and not st.v.any()
     assert st.ids.dtype == torch.int32
@@ -31,27 +31,27 @@ def test_scene_shapes_dtypes_and_moments(scene):
 
 
 def test_scene_reproducible_and_seeded():
-    a = tpbf.spawn(TCFG, "standard", seed=7)
-    b = tpbf.spawn(TCFG, "standard", seed=7)
-    c = tpbf.spawn(TCFG, "standard", seed=8)
+    a = tpbf.spawn(TCFG, "standard", seed=7, device="cpu")
+    b = tpbf.spawn(TCFG, "standard", seed=7, device="cpu")
+    c = tpbf.spawn(TCFG, "standard", seed=8, device="cpu")
     assert torch.equal(a.x, b.x)
     assert not torch.equal(a.x, c.x)
 
 
 def test_standard_in_unit_cube():
-    x = tpbf.spawn(TCFG, "standard", 0).x
+    x = tpbf.spawn(TCFG, "standard", 0, device="cpu").x
     assert (x >= 0).all() and (x < 1).all()
 
 
 def test_dam_break_block():
-    x = tpbf.spawn(TCFG, "dam_break", 0).x
+    x = tpbf.spawn(TCFG, "dam_break", 0, device="cpu").x
     assert (x >= 0).all()
     assert x[:, 0].max() <= 0.5 and x[:, 1].max() <= TCFG.wall
     assert x[:, 2].max() <= 1.0
 
 
 def test_blowup_in_ball():
-    x = tpbf.spawn(TCFG, "blowup", 0).x
+    x = tpbf.spawn(TCFG, "blowup", 0, device="cpu").x
     r = torch.linalg.vector_norm(x - TCFG.wall / 2, dim=1)
     assert r.max() <= 0.5 + 1e-5
     assert abs(float(r.mean()) - 0.375) < 0.02

@@ -33,7 +33,7 @@ def test_window_three_steps_match_jax_dense():
     jcfg = jpbf.default_config(n=256)
     cfg, a, b = _pair(jcfg, "standard", 1)
     jstep = jmake_step(jcfg, backend="dense")
-    stepper = tstep.make_step(cfg, "window")
+    stepper = tstep.make_step(cfg, "window", device="cpu")
     for _ in range(3):
         a, b = jstep(a), stepper(b)
     x, _, ids, step = interop.state_to_numpy(b)
@@ -48,7 +48,7 @@ def test_window_step_matches_jax_cell(scene):
                                cell_capacity=256)
     cfg, a, b = _pair(jcfg, scene, 0)
     a = jmake_step(jcfg, backend="cell")(a)
-    b = tstep.make_step(cfg, "window")(b)
+    b = tstep.make_step(cfg, "window", device="cpu")(b)
     xa, va = _unsort(a.x, a.v, a.ids)
     xb, vb = _unsort(b.x.numpy(), b.v.numpy(), b.ids.numpy())
     np.testing.assert_allclose(xb, xa, rtol=1e-5, atol=1e-6)
@@ -59,7 +59,7 @@ def test_dense_backend_matches_jax_dense():
     jcfg = jpbf.default_config(n=256)
     cfg, a, b = _pair(jcfg, "blowup", 2)
     a = jmake_step(jcfg, backend="dense")(a)
-    b = tstep.make_step(cfg, "dense")(b)
+    b = tstep.make_step(cfg, "dense", device="cpu")(b)
     np.testing.assert_allclose(b.x.numpy(), np.asarray(a.x), rtol=1e-5,
                                atol=1e-6)
     assert torch.equal(b.ids, torch.arange(256, dtype=torch.int32))
@@ -67,8 +67,9 @@ def test_dense_backend_matches_jax_dense():
 
 def test_rollout_with_stats_keeps_a_finite_boxed_state():
     cfg = default_config(n=1024)
-    st = spawn(cfg, "dam_break", seed=0)
-    state, stats = tstep.make_rollout(cfg, "window", 10, with_stats=True)(st)
+    st = spawn(cfg, "dam_break", seed=0, device="cpu")
+    state, stats = tstep.make_rollout(cfg, "window", 10, with_stats=True,
+                                      device="cpu")(st)
     assert stats.dtype == torch.int32 and stats.tolist() == [0, 0, 0]
     assert int(state.step) == 10
     assert torch.isfinite(state.x).all() and torch.isfinite(state.v).all()
@@ -78,10 +79,11 @@ def test_rollout_with_stats_keeps_a_finite_boxed_state():
 
 def test_rollout_counts_nonfinite_steps():
     cfg = default_config(n=256)
-    st = spawn(cfg, "standard", seed=0)
+    st = spawn(cfg, "standard", seed=0, device="cpu")
     st = st._replace(x=st.x.clone())
     st.x[5, 1] = float("nan")
-    _, stats = tstep.make_rollout(cfg, "window", 2, with_stats=True)(st)
+    _, stats = tstep.make_rollout(cfg, "window", 2, with_stats=True,
+                                  device="cpu")(st)
     assert stats.tolist() == [0, 0, 2]
 
 
@@ -92,9 +94,10 @@ def test_backend_and_state_checks():
         tstep.make_step(cfg, "pallas")
     with pytest.raises(ValueError):
         tstep.make_rollout(cfg, "window", 0)
-    wrong_n = spawn(dataclasses.replace(cfg, n=128), "standard", 0)
+    wrong_n = spawn(dataclasses.replace(cfg, n=128), "standard", 0,
+                    device="cpu")
     with pytest.raises(ValueError):
-        tstep.make_step(cfg, "window")(wrong_n)
+        tstep.make_step(cfg, "window", device="cpu")(wrong_n)
 
 
 def test_cuda_request_without_cuda_or_nvcc_raises(monkeypatch):
