@@ -196,9 +196,9 @@ def main(argv: list[str] | None = None) -> int:
     abi = {tag: _abi(kl) for tag, kl in libs.items()}
     bitwise = abi["tree"] == abi["base"]
     for tag, kl in libs.items():
-        regs = [ln.strip() for ln in kl.log.splitlines() if "registers" in ln]
         print(f"[build] {tag}: {kl.path.name}, launcher interface "
-              f"{abi[tag]}; ptxas: {' | '.join(regs)}")
+              f"{abi[tag]}; ptxas: "
+              + "; ".join(cuda_build.ptxas_registers(kl.log)))
     print("[ab] outputs compared " + ("bit for bit" if bitwise else
                                       "within the kernels' tolerances"))
 

@@ -9,7 +9,10 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 Runs the rollout of `pdb_sph_tpu_torch` from each checkout in a process of
 its own, in the order parent, tree, tree, parent (`--rounds` times); each
 process builds its checkout's kernels into that checkout's `build/`. One
-run: the default geometry's 80k dam break, a 240-step settle chunk, then a
+run: the 80k dam break in the geometry `geometry_from_env` gives (the
+default one; `PBF_MXU_SUM=1 PBF_MXU_RD2=1 PBF_MXU_PROJ=1` in the
+environment runs both checkouts with every tensor-core switch on), a
+240-step settle chunk, then a
 timed 240-step rollout (host clock, fenced: steps/s), then the median of
 20 steps of the stage breakdown from CUDA events recorded between the
 stages (the `mark` hook of `Stepper.step`). Writes
@@ -84,7 +87,7 @@ def run_one(root: Path) -> dict:
         raise AssertionError(f"rollout went wrong: stats {stats.tolist()}")
     stages = _stages(rollout.stepper, state)
     return {"steps_per_s": STEPS / secs, "seconds": secs, "stages_ms": stages,
-            "stages_sum_ms": sum(stages.values())}
+            "stages_sum_ms": sum(stages.values()), "geom": repr(cfg.geom)}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -118,7 +121,8 @@ def main(argv: list[str] | None = None) -> int:
                 raise RuntimeError(f"{tag} run failed ({res.returncode})")
             r = json.loads(res.stdout.strip().splitlines()[-1])
             runs[tag].append(r)
-            print(f"[rollout] {tag}: {r['steps_per_s']:.2f} steps/s "
+            print(f"[rollout] {tag} ({r['geom']}): "
+                  f"{r['steps_per_s']:.2f} steps/s "
                   f"({N * r['steps_per_s']:.1f} particle-steps/s); stages "
                   "(median of 20 steps, CUDA events, ms): " + ", ".join(
                       f"{k} {v:.4f}" for k, v in r["stages_ms"].items())

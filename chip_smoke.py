@@ -13,20 +13,23 @@ exits non-zero:
   3. kernels — each kernel against its plain torch version on the same
                inputs, at the main path's shape, with errors, times, and
                each kernel's bound and share of it: the FP32 kernels
-               (csrc/pbf_window.cu) on the 80k dam break mid-collapse (step
+               (csrc/pbf_window.cu) and the six tensor-core instantiations
+               (csrc/pbf_tc.cu) on the 80k dam break mid-collapse (step
                60) and settled (step 480, the heaviest own-chunks), each
-               launched twice for bitwise-equal output; the six tensor-core
-               instantiations (csrc/pbf_tc.cu) at step 60;
+               launched twice for bitwise-equal output, the scratch's
+               counters back at 0;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
                settle chunk: steps/s, stats, launch counts, stage breakdown;
-               then the same with every tensor-core switch on;
+               then the same with every tensor-core switch on, and two
+               short rollouts with {mxu_sum} and {mxu_rd2, mxu_proj}, so
+               that each tensor-core instantiation runs on a path;
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
                steps must come to rest (mean dense rho within 5 % of rho0,
                max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN),
-               in the default geometry, with every tensor-core switch on,
-               and with one work item a chunk (a witness whose FP32 sums
-               differ from the default geometry's only in their order);
+               in the default geometry and with every tensor-core switch
+               on, each also with one work item a chunk (a witness whose
+               sums differ from the geometry's only in their order);
   7. cli     — the runner (pdb_sph_tpu_torch.cli.main) in-process on the
                card: the 80k dam break with metrics, frames, a GIF and a
                checkpoint; a resume of it; the 80k blowup; and a short 80k
@@ -38,10 +41,10 @@ counts set to 0 just before it and read just after.
 The line before the last is a JSON object with each kernel's launches
 (`launches_from` names the phases they were counted in: the FP32 solve
 kernels' from phase 5, the rho output's from phase 7's runs, the
-all-switches tensor-core kernels' from phases 5-7; the four one-switch
-instantiations run on no path, and count phase 3's checked launch), error
-and times; the last line is {"ok": true, "device": {...}}. Without a card,
-or without the package beside it, the script exits non-zero and prints no
+all-switches tensor-core kernels' from phases 5-7, the four one-switch
+instantiations' from phase 5's short rollouts), error and times at both
+steps; the last line is {"ok": true, "device": {...}}. Without a card, or
+without the package beside it, the script exits non-zero and prints no
 result.
 """
 
@@ -62,6 +65,8 @@ SETTLE_STEPS = 60      # kernel-vs-plain inputs: mid-collapse state
 SETTLED_STEP = 480     # and the settled state, with the heaviest chunks
 N_ORACLE = 2048
 ROLLOUT_STEPS = 240
+# the one-switch geometries' rollouts: each runs its two instantiations
+SHORT_STEPS = 40
 REPS = 20
 # kernel vs plain: sums run in another order, with FMA contraction
 LAMBDA_RTOL, LAMBDA_ATOL = 1e-4, 1e-8
@@ -151,6 +156,8 @@ TC_FORMS = {
     "project_tc_proj_sum": dict(mxu_proj=True, mxu_sum=True),
 }
 ALL_SWITCHES = dict(mxu_sum=True, mxu_rd2=True, mxu_proj=True)
+# phase 5's short rollouts, which run the four one-switch instantiations
+ONE_SWITCH_GEOMS = (dict(mxu_sum=True), dict(mxu_rd2=True, mxu_proj=True))
 MXU_ENV = ("PBF_MXU_SUM", "PBF_MXU_RD2", "PBF_MXU_PROJ")
 CLI_TC_STEPS = 40
 
@@ -173,15 +180,16 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from pdb_sph_tpu_torch.utils.cuda_build import load_kernels
+    from pdb_sph_tpu_torch.utils.cuda_build import (load_kernels,
+                                                    ptxas_registers)
 
     t0 = time.perf_counter()
     kl = load_kernels()
     total = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in kl.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
     print(f"[build] ok {kl.path.name} nvcc {kl.build_seconds:.2f} s "
-          f"(load total {total:.2f} s); ptxas: {' | '.join(ptxas)}")
+          f"(load total {total:.2f} s); ptxas (template arguments: pass or "
+          f"switches, rows per lane or own): "
+          + "; ".join(ptxas_registers(kl.log)))
 
 
 def _sorted_p4(cfg, x: torch.Tensor):
@@ -342,40 +350,39 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int,
 
 
 def phase_kernels(device, n: int = N_MAIN) -> dict:
-    """Each kernel against its plain version on the dam break at step 60
-    and, for the FP32 kernels, at step 480. Returns {counter: (max|err|,
-    ms, plain ms, checked launches, bound ms, bound by, ms at step 480 or
-    None, bound ms at step 480)}."""
+    """Each kernel against its plain version on the dam break at steps 60
+    and 480. Returns {counter: (max|err|, ms, plain ms, bound ms, bound by,
+    ms at step 480, bound ms at step 480)}."""
     import pdb_sph_tpu_torch as pbf
 
     cfg = pbf.default_config(n=n)
+    g = cfg.geom
+    print(f"[kernels] tensor-core layout at own {g.own}: "
+          f"{g.tc_m_tiles} m16 tile(s) a warp, {g.tc_col_groups} warp(s) "
+          f"splitting each stage's candidates, {g.tc_smem_bytes} bytes of "
+          f"shared memory (kProjMma)")
     state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
     state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
     p4, plan = _sorted_p4(cfg, state.x)
     mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, REPS)
-    tc = _tc_kernels(cfg, p4, d_k, plan, n)
+    mid.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS,
+                           TC_PLAIN_REPS))
     state = pbf.make_rollout(cfg, "window", SETTLED_STEP - SETTLE_STEPS,
                              device=device)(state)
     p4, plan = _sorted_p4(cfg, state.x)
-    settled, _ = _fp32_kernels(cfg, p4, plan, n, SETTLED_STEP, 0)
-    out = {k: (max(v[0], settled[k][0]), v[1], v[2], 0, v[3], v[4],
-               settled[k][1], settled[k][3]) for k, v in mid.items()}
-    # the tensor-core forms' bounds on the settled state (their times
-    # there are benchmarks_torch/geometry_ab.py's)
-    near = _near_pairs(cfg, p4, plan, n)
-    for k, v in tc.items():
-        bound_ms, bound_by, _ = _bound(k, plan, n, cfg.geom.own, near)
-        out[k] = (*v[:7], bound_ms)
-        print(f"[kernels] {KERNELS[k][0]} bound at step {SETTLED_STEP}: "
-              f"{bound_ms:.4f} ms by {bound_by}")
-    return out
+    settled, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLED_STEP, 0)
+    settled.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLED_STEP, 0))
+    return {k: (max(v[0], settled[k][0]), *v[1:], settled[k][1],
+                settled[k][3]) for k, v in mid.items()}
 
 
-def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
+def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
+                plain_reps: int) -> dict:
     """The six tensor-core instantiations against their plain versions on
-    phase 3's input; the project forms take the FP32 kernel's lambda, as
-    the FP32 project kernel does. Returns {counter: (max|err|, ms,
-    plain ms, checked launches, bound ms, bound by, None, None)}."""
+    one state; the project forms take the FP32 kernel's lambda, as the FP32
+    project kernel does. Each launched twice for bitwise-equal output, the
+    scratch's counters back at 0 after. Returns {counter: (max|err|, ms,
+    plain ms or None, bound ms, bound by)}."""
     import dataclasses
 
     from pdb_sph_tpu_torch.ops import cuda_pbf
@@ -384,6 +391,7 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
     fp32 = {"density": cuda_pbf.density_pass_ref(cfg, p4, plan, n)[:n, 3],
             "project": cuda_pbf.project_pass_ref(cfg, d_fp, plan, n)[:n, :3]}
     near = _near_pairs(cfg, p4, plan, n)
+    scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], p4.device)
     buf = torch.empty_like(p4)
     out, bad = {}, []
     for name, switches in TC_FORMS.items():
@@ -395,9 +403,12 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
         plain = (cuda_pbf.density_pass_ref if density
                  else cuda_pbf.project_pass_ref)
         cuda_pbf.reset_launches()
-        got = wrapper(tcfg, src, plan, n)
+        got = wrapper(tcfg, src, plan, n, scratch=scratch)
+        again = wrapper(tcfg, src, plan, n, scratch=scratch)
         torch.cuda.synchronize()
         launches = cuda_pbf.LAUNCHES[name]
+        equal = torch.equal(got, again)
+        counters = int(scratch.counters.abs().sum())
         want = plain(tcfg, src, plan, n)
         cols = slice(3, 4) if density else slice(0, 3)
         kept = slice(0, 3) if density else slice(3, 4)
@@ -414,26 +425,31 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int) -> dict:
         else:
             n_bad = int((err > TC_POS_ATOL).sum())
             tol = f"atol {TC_POS_ATOL:g}"
-        k_ms = cuda_ms(lambda: wrapper(tcfg, src, plan, n, buf), REPS)
-        r_ms = cuda_ms(lambda: plain(tcfg, src, plan, n, buf), TC_PLAIN_REPS)
+        k_ms = cuda_ms(lambda: wrapper(tcfg, src, plan, n, buf, scratch),
+                       REPS)
+        r_ms = (cuda_ms(lambda: plain(tcfg, src, plan, n, buf), plain_reps)
+                if plain_reps else None)
         bound_ms, bound_by, _ = _bound(name, plan, n, cfg.geom.own, near)
-        print(f"[kernels] {KERNELS[name][0]}: max|err| "
+        plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
+                     if r_ms is not None else "plain not timed here")
+        print(f"[kernels] {KERNELS[name][0]} at step {step}: max|err| "
               f"{float(err.max()):.3e} vs plain (tol {tol}, {n_bad} "
               f"outside); plain form vs plain FP32 form max|diff| "
-              f"{form:.3e}; kernel {k_ms:.4f} ms (median of {REPS}), plain "
-              f"{r_ms:.4f} ms (median of {TC_PLAIN_REPS}), CUDA events; "
-              f"bound {bound_ms:.4f} ms by {bound_by}, "
-              f"{100 * bound_ms / k_ms:.1f} % of bound; "
-              f"checked launches {launches}")
+              f"{form:.3e}; kernel {k_ms:.4f} ms (median of {REPS}, CUDA "
+              f"events), {plain_txt}; bound {bound_ms:.4f} ms by "
+              f"{bound_by}, {100 * bound_ms / k_ms:.1f} % of bound; "
+              f"checked launches {launches}, two launches bitwise equal "
+              f"{equal}, counters after {counters}")
         other = switches.get("mxu_rd2") or switches.get("mxu_proj")
-        if n_bad or launches != 1 \
+        if n_bad or launches != 2 or not equal or counters \
                 or (other and TC_SEPARATION * float(err.max()) > form):
             bad.append(name)
-        out[name] = (float(err.max()), k_ms, r_ms, launches, bound_ms,
-                     bound_by, None, None)
+        out[name] = (float(err.max()), k_ms, r_ms, bound_ms, bound_by)
     if bad:
         raise AssertionError(f"tensor-core kernels disagree with their plain "
-                             f"versions or did not launch: {bad}")
+                             f"versions, differ between two launches, left "
+                             f"counters nonzero or did not launch at step "
+                             f"{step}: {bad}")
     return out
 
 
@@ -551,12 +567,16 @@ def _geom_name(geom) -> str:
 
 
 def _solve_kernels(geom) -> tuple[tuple, tuple]:
-    """(the solve kernels `geom` launches, those it must not launch)."""
-    if all(getattr(geom, k) for k in ALL_SWITCHES):
-        return TC_SOLVE_KERNELS, SOLVE_KERNELS
-    if not any(getattr(geom, k) for k in ALL_SWITCHES):
-        return SOLVE_KERNELS, TC_SOLVE_KERNELS
-    raise ValueError(f"chip_smoke drives no path in {geom}")
+    """(the two solve kernels `geom` launches, the other solve kernels,
+    which it must not launch)."""
+    density = ("density_tc" + "_rd2" * geom.mxu_rd2 + "_sum" * geom.mxu_sum
+               if geom.mxu_rd2 or geom.mxu_sum else "density_lambda")
+    project = ("project_tc" + "_proj" * geom.mxu_proj
+               + "_sum" * geom.mxu_sum
+               if geom.mxu_proj or geom.mxu_sum else "project")
+    expect = (density, project)
+    return expect, tuple(k for k in (*SOLVE_KERNELS, *TC_FORMS)
+                         if k not in expect)
 
 
 def phase_settle(device, geom=None) -> dict:
@@ -739,9 +759,15 @@ def main() -> int:
     phase_oracle(device)
     launches = phase_main(device, card)
     tc_main = phase_main(device, card, geom=tc_geom)
+    short = {}
+    for switches in ONE_SWITCH_GEOMS:
+        got = phase_main(device, card, KernelGeometry(**switches),
+                         steps=SHORT_STEPS)
+        short.update({k: v for k, v in got.items() if k in TC_FORMS and v})
     phase_settle(device)
     tc_settle = phase_settle(device, geom=tc_geom)
     phase_settle(device, geom=KernelGeometry(seg=WITNESS_SEG))
+    phase_settle(device, geom=KernelGeometry(**ALL_SWITCHES, seg=WITNESS_SEG))
     rho, tc_cli = phase_cli(
         device, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "chip_smoke_cli"))
@@ -752,18 +778,18 @@ def main() -> int:
         launches[k] = tc_main[k] + tc_settle[k] + tc_cli[k]
         origin[k] = "phases 5-7"
     for k in set(TC_FORMS) - set(TC_SOLVE_KERNELS):
-        launches[k], origin[k] = kern[k][3], "phase 3"
+        launches[k] = short[k]
+        origin[k] = f"phase 5 ({SHORT_STEPS}-step rollout)"
     # no single PyTorch call computes a windowed neighbour sum, so no
     # kernel has a library time
     report = [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
          "launches_from": origin[k], "max_abs_err": kern[k][0],
-         "ms": kern[k][1], "plain_ms": kern[k][2], "bound_ms": kern[k][4],
-         "bound_by": kern[k][5], "library_ms": None,
-         **({} if kern[k][6] is None else {
-             f"ms_step{SETTLED_STEP}": kern[k][6]}),
-         f"bound_ms_step{SETTLED_STEP}": kern[k][7]}
+         "ms": kern[k][1], "plain_ms": kern[k][2], "bound_ms": kern[k][3],
+         "bound_by": kern[k][4], "library_ms": None,
+         f"ms_step{SETTLED_STEP}": kern[k][5],
+         f"bound_ms_step{SETTLED_STEP}": kern[k][6]}
         for k in KERNELS
     ]
     if any(r["launches"] <= 0 for r in report):

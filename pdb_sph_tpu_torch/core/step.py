@@ -16,7 +16,7 @@ runner's metrics.
 
 A `Stepper` holds the config, the device (the card unless the caller asks
 for the CPU), and what the solve reuses from step to step: the two
-ping-pong buffers and the FP32 kernels' scratch. A `Rollout` runs many
+ping-pong buffers and the pair kernels' scratch. A `Rollout` runs many
 steps as a Python loop with no host synchronisation inside it, summing the
 per-step stats vector [table_overflow, plan_overflow, nonfinite] on the device.
 """

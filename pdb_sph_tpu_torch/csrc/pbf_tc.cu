@@ -8,27 +8,40 @@
 // stay in pbf_window.cu; ops/cuda_pbf.py picks these when a switch of the
 // pass is on in the geometry.
 //
-// Work split. As in pbf_window.cu, one block per own-chunk of `own` rows
-// takes the chunk's nine exact candidate ranges, staged through shared memory
-// `tile` candidates at a time. Inside the block, one warp takes 16 own rows
-// (own / 16 warps), the rows of an m16n8k16 `mma.sync`: in its
-// accumulator fragment each thread holds rows g and g + 8 (g = lane / 4) and
-// candidate columns 2t and 2t + 1 (t = lane % 4) of an 8-candidate tile.
-// While staging, each candidate's bf16 hi/lo split, its rd2 operand and its
-// float32 |c|^2 are computed once, in shared memory.
+// Work split. pair_items.cuh schedules the work as for the FP32 kernels:
+// items of at most `seg_len` candidates of one chunk on a persistent grid
+// of four-warp blocks, raw float4 candidate rows through the bulk-copy
+// ring, the chunk's item sums added in segment order. An item's partial is
+// one float4 per own row: (s_rho, s_g2) for density, (S, acc_p x, y, z)
+// with the hi.lo columns already folded in for kProjMma, (sx, sy, sz) for
+// the kSumMma-only project. lambda, or the moved position, is formed once
+// from the combined sums. Inside a block, the warps split the own rows into
+// m16 tiles, the rows of an m16n8k16 `mma.sync` (in its accumulator
+// fragment each thread holds rows g and g + 8, g = lane / 4, and candidate
+// columns 2t and 2t + 1, t = lane % 4, of an 8-candidate tile);
+// kColGroups of them split each staged tile's candidates instead, and
+// their sums are the combine's groups, added in warp order.
+//
+// Staging. The rd2 and delta-p forms convert each arrived tile in shared
+// memory into fragment planes: each candidate's bf16 hi/lo split, its rd2
+// operand words, its float32 |c|^2 and lambda, computed once per (item,
+// candidate), ~30 operations against ~own x 15 of pair work that they
+// feed. The planes are padded so that the eight candidates and four words
+// of a fragment fall on 32 banks. The kSumMma-only forms read the raw rows
+// from the ring.
 //
 // rd2 on the tensor cores. The three products of `_dot3`
 // (hi.hi + hi.lo + lo.hi) fit one k16 mma: A row i is
 // [oh, oh, ol, 0...] and B column j is [ch, cl, ch, 0...] over (x, y, z), so
 // one instruction gives the split dot in float32; A stays in registers for
-// the whole chunk. |o|^2 and |c|^2 stay float32 on the CUDA cores, and rd2 =
+// the item. |o|^2 and |c|^2 stay float32 on the CUDA cores, and rd2 =
 // (|o|^2 - (dot + dot)) + |c|^2 keeps JAX's association.
 //
 // Per-pair terms in the accumulator layout. The clamp, rsqrt and the density
 // terms (or project's s) run on the CUDA cores on the four elements each
-// thread holds, and accumulate element-wise across tiles, like the TPU's
-// (OWN, CC) accumulators; the epilogue reduces each thread's (row, column)
-// sums to row sums.
+// thread holds, and accumulate element-wise across the item's tiles, like
+// the TPU's (OWN, CC) accumulators; the item's end reduces each thread's
+// (row, column) sums to row sums.
 //
 // Row sums. Without kSumMma: quad shuffles. With kSumMma (`_ksum`'s
 // Precision.HIGHEST matvec): one mma pair against an exact all-ones B, with
@@ -43,50 +56,65 @@
 // split into bf16 sh/sl in registers and multiplied with B = the
 // candidates' [ch | cl] (one mma) and [ch | 0] (a second), accumulating
 // sh.ch + sl.ch in columns 0-2 and sh.cl in columns 3-5 over a staged
-// round. Each round's product is added into the stream's sums in float32
-// on the CUDA cores: kept in one mma accumulator over the whole stream,
-// the tensor core's rounding of the running sum put the positions up to
+// tile. Each tile's product is added into the item's sums in float32 on
+// the CUDA cores: kept in one mma accumulator over a whole chunk, the
+// tensor core's rounding of the running sum put the positions up to
 // 2.9e-6 from the plain version's (80k dam break, step 60, NVIDIA H100
-// 80GB HBM3 at 700 W), the per-round sums 7.2e-7. The epilogue adds the
-// hi.lo columns into the hi.hi ones and forms own3 + k * (own3 * S -
-// acc_p), lambda carried through in column 3.
+// 80GB HBM3 at 700 W), the per-round sums 7.2e-7. The item's end adds the
+// hi.lo columns into the hi.hi ones; the finish forms own3 + k * (own3 * S
+// - acc_p), lambda carried through in column 3.
 //
-// The ragged tail. A staged tile is zero-filled up to the next multiple of
-// 16 candidates, so no stale shared memory can be NaN, and every term of a
-// column at or past the tile's count is masked to exactly 0. No sentinel
+// The ragged tail. A converted tile is zero-filled up to the next multiple
+// of 16 candidates, so no stale shared memory can be NaN, and every term of
+// a column at or past the tile's count is masked to exactly 0; the forms
+// that read the ring select a zero row past the count. No sentinel
 // position is streamed.
 //
 // What bounds it. The same pair work as pbf_window.cu (one rsqrt and ~15
 // float32 operations per pair on the CUDA cores), less the three deltas and
-// their squares that the mma takes over; one mma per 8 candidates per warp
-// (two more per 16 for delta-p) is far below the tensor cores' rate, so
-// the CUDA-core pair chain still bounds it, and the heaviest own-chunk sets
-// the time. Measured on that card, the rd2 and delta-p mma forms take 2-7 %
-// longer than the same layout with FP32 pair math (the `kSumMma`-only
-// forms), and the layout itself, twice the threads of pbf_window.cu's
-// kernels on a chunk, is what makes these kernels up to 38 % faster than
-// those on the settled dam. Shared memory is read as
-// conflict-free 32-bit fragment words (the planes are padded so that the
-// eight candidates and four words of a fragment fall on 32 banks) and
-// 8-byte (|c|^2, lambda) pairs.
+// their squares that the mma takes over; one mma per 16 x 8 pairs (two
+// more per 16 x 16 for delta-p) is far below the tensor cores' rate, so
+// the CUDA-core pair chain bounds it. `wgmma` would not help.
 //
-// Numerics. Build without --use_fast_math; rsqrtf kept. |o|^2, |c|^2 and the
-// final own3 * S - acc_p use round-to-nearest intrinsics so that nvcc does
-// not contract them into FMAs the plain version does not have. Hopper's
-// float32 accumulation inside an mma is not IEEE round-to-nearest;
-// chip_smoke.py measures the kernels against their plain versions.
+// Numerics. Build without --use_fast_math; rsqrt_normal is rsqrtf's value.
+// |o|^2, |c|^2 and the final own3 * S - acc_p use round-to-nearest
+// intrinsics so that nvcc does not contract them into FMAs the plain
+// version does not have. Hopper's float32 accumulation inside an mma is not
+// IEEE round-to-nearest; chip_smoke.py measures the kernels against their
+// plain versions.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "pair_items.cuh"
 
 namespace {
 
-constexpr int kWindows = 9;
-constexpr int kRd2Words = 5;    // 32-bit words of a candidate's rd2 B column
+using namespace pair_items;
+
+// 32-bit word planes of a candidate's rd2 B column: its words 0-2 and 4
+// (word 3 repeats word 0)
+constexpr int kRd2Planes = 4;
 constexpr int kProjPlanes = 6;  // bf16 planes of delta-p's B: ch xyz, cl xyz
 constexpr uint32_t kOnes = 0x3F803F80u;  // two bf16 1.0
+// warps that split each staged tile's candidates, the other warps splitting
+// the own rows (geometry.TC_COL_GROUPS); more where the own rows are too
+// few for one m16 tile a warp. At own 64 on an NVIDIA H100 80GB HBM3 at
+// 700 W (benchmarks_torch/geometry_ab.py --base-tc with each value): 2
+// (two m16 tiles a warp, 58-123 registers) ran within -3 % to +10 % of 1
+// (40-48), 4 (four m-tiles, 80-168 registers, with spills) 3-45 % slower.
+constexpr int kColGroups = 1;
+constexpr int kLd = kStageLen + 8;       // rd2 plane stride in words
+constexpr int kLdq = kStageLen / 2 + 4;  // delta-p plane stride in words
+// a converted tile: rd2 word planes and |c|^2; for delta-p also lambda and
+// the bf16 planes
+constexpr int kRd2PlaneBytes = (kRd2Planes * kLd + kStageLen) * 4;
+constexpr int kProjPlaneBytes =
+    kRd2PlaneBytes + (kStageLen + kProjPlanes * kLdq) * 4;
+
+template <int kOwn>
+constexpr int col_groups() {
+  return kColGroups > 64 / kOwn ? kColGroups : 64 / kOwn;
+}
 
 __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo_k,
                                          __nv_bfloat16 hi_k) {
@@ -103,6 +131,20 @@ struct Split {
 __device__ __forceinline__ Split split2(float a) {
   const __nv_bfloat16 hi = __float2bfloat16_rn(a);
   return {hi, __float2bfloat16_rn(__fsub_rn(a, __bfloat162float(hi)))};
+}
+
+// `_bf16_split` of two values at once, each pair packed as the mma
+// fragments want it (a in the lower 16 bits): hi = bf16(a, b) and lo =
+// bf16(a - hi_a, b - hi_b), one cvt.rn.bf16x2.f32 each, the same bits as
+// split2 of each.
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(a, hf.x), __fsub_rn(b, hf.y));
+  hi = pack(h.x, h.y);
+  lo = pack(l.x, l.y);
 }
 
 // |p|^2 = (x x + y y) + z z, each step rounded, as the plain version does
@@ -145,29 +187,48 @@ __device__ __forceinline__ void rd2_a_frag(const float4& pa, const float4& pb,
   a[3] = rd2_a_word(pb, t + 4);
 }
 
-// Stage candidate k's rd2 B column
-// [chx, chy, chz, clx, cly, clz, chx, chy, chz, 0 ...] as five words, one
-// per plane (plane stride `ld` words), and its |c|^2.
-__device__ __forceinline__ void stage_rd2(const float4& c, int k, int ld,
+// Convert candidate k's rd2 B column
+// [chx, chy, chz, clx, cly, clz, chx, chy, chz, 0 ...] into its words 0, 1,
+// 2 and 4 (word 3 = word 0), one per plane (plane stride kLd words), and
+// its |c|^2.
+__device__ __forceinline__ void stage_rd2(const float4& c, int k,
                                           uint32_t* words, float* cn2) {
   const Split x = split2(c.x), y = split2(c.y), z = split2(c.z);
-  words[0 * ld + k] = pack(x.hi, y.hi);
-  words[1 * ld + k] = pack(z.hi, x.lo);
-  words[2 * ld + k] = pack(y.lo, z.lo);
-  words[3 * ld + k] = pack(x.hi, y.hi);
-  words[4 * ld + k] = pack(z.hi, __float2bfloat16_rn(0.f));
+  words[0 * kLd + k] = pack(x.hi, y.hi);
+  words[1 * kLd + k] = pack(z.hi, x.lo);
+  words[2 * kLd + k] = pack(y.lo, z.lo);
+  words[3 * kLd + k] = pack(z.hi, __float2bfloat16_rn(0.f));
   cn2[k] = sq3(c.x, c.y, c.z);
 }
 
-// dot[e] for (rows g, g + 8) x (candidates c0 + 2t, c0 + 2t + 1) of the
-// 8-candidate tile at c0: B column g's words t and t + 4.
-__device__ __forceinline__ void rd2_dot(const uint32_t (&a)[4],
-                                        const uint32_t* words, int ld, int c0,
-                                        int g, int t, float (&d)[4]) {
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  const uint32_t b0 = words[t * ld + c0 + g];
-  const uint32_t w4 = words[4 * ld + c0 + g];
-  mma(d, a, b0, t == 0 ? w4 : 0u);
+// What every own m-tile of a warp reads of the 8-candidate tile at c0 for
+// rd2: B column g's words t and t + 4, and |c|^2 of columns 2t, 2t + 1.
+// Lane t = 3 reads word 0 for word 3, the same address as lane t = 0: a
+// broadcast, no bank conflict.
+struct Rd2Tile {
+  uint32_t b0, b1;
+  float2 cn;
+};
+
+__device__ __forceinline__ Rd2Tile rd2_tile(const uint32_t* words,
+                                            const float* cn2, int c0, int g,
+                                            int t) {
+  const uint32_t w4 = words[3 * kLd + c0 + g];
+  return {words[(t == 3 ? 0 : t) * kLd + c0 + g], t == 0 ? w4 : 0u,
+          *reinterpret_cast<const float2*>(cn2 + c0 + 2 * t)};
+}
+
+// rd2[e] of rows (g, g + 8) x columns (2t, 2t + 1) of a tile, on2 = |o|^2
+// of the two rows.
+__device__ __forceinline__ void rd2_mma(const uint32_t (&a)[4],
+                                        const float (&on2)[2],
+                                        const Rd2Tile& b, float (&rd2)[4]) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(d, a, b.b0, b.b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    rd2[e] = (on2[e >> 1] - (d[e] + d[e])) + (e & 1 ? b.cn.y : b.cn.x);
+  }
 }
 
 // Row sums of a thread's (rows g, g + 8) x (columns 2t, 2t + 1) sums over
@@ -202,354 +263,511 @@ __device__ __forceinline__ float2 row_sums(const float (&acc)[4]) {
   }
 }
 
-// Stage rounds of the chunk's windows: for each, candidates [0, cnt) of the
-// round are in shared memory, zero-filled to a multiple of 16, when
-// body(cnt) runs. stage(k, c) writes candidate k's shared form.
-template <typename Stage, typename Body>
-__device__ __forceinline__ void stream(const float4* __restrict__ pin,
-                                       const int* __restrict__ win, int tile,
-                                       Stage stage, Body body) {
-  for (int w = 0; w < kWindows; ++w) {
-    const int start = win[2 * w];
-    const int end = win[2 * w + 1];
-    for (int base = start; base < end; base += tile) {
-      const int cnt = min(tile, end - base);
-      const int cnt16 = (cnt + 15) & ~15;
-      for (int k = threadIdx.x; k < cnt16; k += blockDim.x) {
-        stage(k, k < cnt ? pin[base + k] : make_float4(0.f, 0.f, 0.f, 0.f));
-      }
-      __syncthreads();
-      body(cnt);
-      __syncthreads();
-    }
+// The warp's place in the block: its column group (candidates c0 =
+// 8 cg, 8 (cg + CG), ... of each tile, or 16-candidate steps for
+// delta-p), the first of its MT m16 tiles of own rows, and the fragment
+// indices g, t.
+template <int kOwn>
+struct Layout {
+  static constexpr int CG = col_groups<kOwn>();
+  static constexpr int MT = kOwn * CG / 64;  // m16 tiles a warp
+  static_assert(MT >= 1 && kOwn * CG % 64 == 0, "own rows per warp");
+  int g, t, cg, row0;
+
+  __device__ __forceinline__ Layout() {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    g = lane >> 2;
+    t = lane & 3;
+    cg = warp % CG;
+    row0 = (warp / CG) * MT * 16;
   }
+
+  // own row of element e's row half (0: row g, 1: g + 8) of m-tile m
+  __device__ __forceinline__ int row(int m, int half) const {
+    return row0 + m * 16 + g + 8 * half;
+  }
+
+  // the item's own rows (g, g + 8) of m-tile m, zero past n
+  __device__ __forceinline__ void own_rows(const float4* __restrict__ pin,
+                                           int chunk_row0, int n, int m,
+                                           float4& pa, float4& pb) const {
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int ia = chunk_row0 + row(m, 0);
+    pa = ia < n ? pin[ia] : zero4;
+    pb = ia + 8 < n ? pin[ia + 8] : zero4;
+  }
+};
+
+// Candidate rows (col, col + 1) of a raw tile; in the ragged tail
+// (kTail), a zero row past cnt.
+template <bool kTail>
+__device__ __forceinline__ void ring_pair(const float4* tile, int col, int cnt,
+                                          float4 (&c)[2]) {
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  c[0] = !kTail || col < cnt ? tile[col] : zero4;
+  c[1] = !kTail || col + 1 < cnt ? tile[col + 1] : zero4;
 }
 
-template <bool kRd2Mma, bool kSumMma>
-__global__ void density_tc_kernel(const float4* __restrict__ pin,
-                                  float4* __restrict__ pout,
-                                  const int* __restrict__ ranges, int n,
-                                  int tile, float h, float h2, float eps,
-                                  float poly6, float l2, float inv_rho0,
-                                  float relax_eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = tile + 8;  // plane stride in words: conflict-free fragments
-  // kRd2Mma: five word planes, then |c|^2; otherwise the float4 candidates
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
-  float* cn2 = reinterpret_cast<float*>(words + kRd2Words * ld);
-  float4* cand = reinterpret_cast<float4*>(smem);
+template <bool kRd2Mma, bool kSumMma, int kOwn_>
+struct DensityTc {
+  using L = Layout<kOwn_>;
+  static constexpr int kOwn = kOwn_;
+  static constexpr int kGroups = L::CG;
+  static constexpr int kPlaneBytes = kRd2Mma ? kRd2PlaneBytes : 0;
+  static constexpr int MT = L::MT;
 
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int own = blockDim.x >> 1;  // 16 rows per 32-thread warp
-  const int ia = blockIdx.x * own + (threadIdx.x >> 5) * 16 + g;
-  const int ib = ia + 8;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 pa = ia < n ? pin[ia] : zero4;
-  const float4 pb = ib < n ? pin[ib] : zero4;
-  uint32_t a[4];
-  float on2a = 0.f, on2b = 0.f;
-  if constexpr (kRd2Mma) {
-    rd2_a_frag(pa, pb, t, a);
-    on2a = sq3(pa.x, pa.y, pa.z);
-    on2b = sq3(pb.x, pb.y, pb.z);
+  Consts k;
+  L lay;
+  uint32_t a[MT][4];   // kRd2Mma: the rows' rd2 A fragments
+  float on2[MT][2];    // kRd2Mma: |o|^2 of rows g, g + 8
+  float3 o[MT][2];     // otherwise: the rows' positions
+  float s_rho[MT][4];  // sum (h^2 - rd2)^3
+  float s_g2[MT][4];   // sum (h - r)^4 rd2
+
+  __device__ __forceinline__ explicit DensityTc(const Consts& k_) : k(k_) {}
+
+  __device__ __forceinline__ void begin(const float4* __restrict__ pin,
+                                        int chunk_row0, int n) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float4 pa, pb;
+      lay.own_rows(pin, chunk_row0, n, m, pa, pb);
+      if constexpr (kRd2Mma) {
+        rd2_a_frag(pa, pb, lay.t, a[m]);
+        on2[m][0] = sq3(pa.x, pa.y, pa.z);
+        on2[m][1] = sq3(pb.x, pb.y, pb.z);
+      } else {
+        o[m][0] = make_float3(pa.x, pa.y, pa.z);
+        o[m][1] = make_float3(pb.x, pb.y, pb.z);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_rho[m][e] = s_g2[m][e] = 0.f;
+    }
   }
 
-  float s_rho[4] = {0.f, 0.f, 0.f, 0.f};  // sum (h^2 - rd2)^3
-  float s_g2[4] = {0.f, 0.f, 0.f, 0.f};   // sum (h - r)^4 rd2
-  auto stage = [&](int k, const float4& c) {
-    if constexpr (kRd2Mma) {
-      stage_rd2(c, k, ld, words, cn2);
-    } else {
-      cand[k] = c;
+  __device__ __forceinline__ void convert(const float4* tile, int cnt,
+                                          unsigned char* planes) const {
+    uint32_t* words = reinterpret_cast<uint32_t*>(planes);
+    float* cn2 = reinterpret_cast<float*>(words + kRd2Planes * kLd);
+    const int cnt16 = (cnt + 15) & ~15;
+    for (int j = threadIdx.x; j < cnt16; j += kThreads) {
+      stage_rd2(j < cnt ? tile[j] : make_float4(0.f, 0.f, 0.f, 0.f), j, words,
+                cn2);
     }
-  };
-  auto body = [&](int cnt) {
-    for (int c0 = 0; c0 < cnt; c0 += 8) {
-      float rd2[4];
-      const int col = c0 + 2 * t;
-      if constexpr (kRd2Mma) {
-        float d[4];
-        rd2_dot(a, words, ld, c0, g, t, d);
-        const float2 cn = *reinterpret_cast<const float2*>(cn2 + col);
-        rd2[0] = (on2a - (d[0] + d[0])) + cn.x;
-        rd2[1] = (on2a - (d[1] + d[1])) + cn.y;
-        rd2[2] = (on2b - (d[2] + d[2])) + cn.x;
-        rd2[3] = (on2b - (d[3] + d[3])) + cn.y;
-      } else {
-        const float4 c[2] = {cand[col], cand[col + 1]};
+  }
+
+  // the element's density terms, 0 past the tile's count
+  __device__ __forceinline__ void terms(int m, int e, float rd2, bool live) {
+    const float r2 = fmaxf(fminf(rd2, k.h2), k.eps);
+    const float tt = k.h2 - r2;
+    const float u = k.h - r2 * rsqrt_normal(r2);
+    const float t2 = tt * tt;
+    const float u2 = u * u;
+    s_rho[m][e] += live ? t2 * tt : 0.f;
+    s_g2[m][e] += live ? (u2 * u2) * r2 : 0.f;
+  }
+
+  // the 8-candidate tile at c0; only the ragged tail (kTail) masks
+  template <bool kTail>
+  __device__ __forceinline__ void tile8(const float4* tile,
+                                        const unsigned char* planes, int c0,
+                                        int cnt) {
+    const int col = c0 + 2 * lay.t;
+    const bool live[2] = {!kTail || col < cnt, !kTail || col + 1 < cnt};
+    if constexpr (kRd2Mma) {
+      const uint32_t* words = reinterpret_cast<const uint32_t*>(planes);
+      const Rd2Tile b = rd2_tile(
+          words, reinterpret_cast<const float*>(words + kRd2Planes * kLd), c0,
+          lay.g, lay.t);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float rd2[4];
+        rd2_mma(a[m], on2[m], b, rd2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) terms(m, e, rd2[e], live[e & 1]);
+      }
+    } else {
+      float4 c[2];
+      ring_pair<kTail>(tile, col, cnt, c);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float4& o = e < 2 ? pa : pb;
-          const float dx = o.x - c[e & 1].x;
-          const float dy = o.y - c[e & 1].y;
-          const float dz = o.z - c[e & 1].z;
-          rd2[e] = dx * dx + dy * dy + dz * dz;
+          const float3& p = o[m][e >> 1];
+          const float dx = p.x - c[e & 1].x;
+          const float dy = p.y - c[e & 1].y;
+          const float dz = p.z - c[e & 1].z;
+          terms(m, e, dx * dx + dy * dy + dz * dz, live[e & 1]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void consume(const float4* tile,
+                                          const unsigned char* planes,
+                                          int cnt) {
+    int c0 = 8 * lay.cg;
+#pragma unroll 2
+    for (; c0 + 8 <= cnt; c0 += 8 * L::CG) tile8<false>(tile, planes, c0, cnt);
+    if (c0 < cnt) tile8<true>(tile, planes, c0, cnt);
+  }
+
+  __device__ __forceinline__ void end(float4* red) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float2 rho = row_sums<kSumMma>(s_rho[m]);
+      const float2 g2 = row_sums<kSumMma>(s_g2[m]);
+      if (lay.t == 0) {
+        float4* r = red + lay.cg * kOwn;
+        r[lay.row(m, 0)] = make_float4(rho.x, g2.x, 0.f, 0.f);
+        r[lay.row(m, 1)] = make_float4(rho.y, g2.y, 0.f, 0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ float4 finish(float4 me, float4 s) const {
+    return pair_items::finish<Pass::kLambda>(me, s, k);
+  }
+};
+
+template <bool kProjMma, bool kSumMma, int kOwn_>
+struct ProjectTc {
+  static_assert(kProjMma || kSumMma, "the FP32 form is pbf_window.cu's");
+  using L = Layout<kOwn_>;
+  static constexpr int kOwn = kOwn_;
+  static constexpr int kGroups = L::CG;
+  static constexpr int kPlaneBytes = kProjMma ? kProjPlaneBytes : 0;
+  static constexpr int MT = L::MT;
+
+  Consts k;
+  L lay;
+  uint32_t a[MT][4];   // kProjMma: the rows' rd2 A fragments
+  float on2[MT][2];    // kProjMma: |o|^2 of rows g, g + 8
+  float3 o[MT][2];     // otherwise: the rows' positions
+  float olam[MT][2];   // lambda_i + s_corr
+  // kProjMma: element-wise s, and the delta-p mma sums added per tile;
+  // otherwise element-wise s * (dx, dy, dz)
+  float acc_s[MT][4], dp[MT][4];
+  float ax[MT][4], ay[MT][4], az[MT][4];
+
+  __device__ __forceinline__ explicit ProjectTc(const Consts& k_) : k(k_) {}
+
+  __device__ __forceinline__ void begin(const float4* __restrict__ pin,
+                                        int chunk_row0, int n) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float4 pa, pb;
+      lay.own_rows(pin, chunk_row0, n, m, pa, pb);
+      olam[m][0] = pa.w + k.s_corr;
+      olam[m][1] = pb.w + k.s_corr;
+      if constexpr (kProjMma) {
+        rd2_a_frag(pa, pb, lay.t, a[m]);
+        on2[m][0] = sq3(pa.x, pa.y, pa.z);
+        on2[m][1] = sq3(pb.x, pb.y, pb.z);
+      } else {
+        o[m][0] = make_float3(pa.x, pa.y, pa.z);
+        o[m][1] = make_float3(pb.x, pb.y, pb.z);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_s[m][e] = dp[m][e] = 0.f;
+        ax[m][e] = ay[m][e] = az[m][e] = 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void convert(const float4* tile, int cnt,
+                                          unsigned char* planes) const {
+    uint32_t* words = reinterpret_cast<uint32_t*>(planes);
+    float* cn2 = reinterpret_cast<float*>(words + kRd2Planes * kLd);
+    float* lam = cn2 + kStageLen;
+    __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(lam + kStageLen);
+    const int cnt16 = (cnt + 15) & ~15;
+    for (int j = threadIdx.x; j < cnt16; j += kThreads) {
+      const float4 c = j < cnt ? tile[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+      stage_rd2(c, j, words, cn2);
+      lam[j] = c.w;
+      const Split x = split2(c.x), y = split2(c.y), z = split2(c.z);
+      const int lq = 2 * kLdq;  // plane stride in bf16
+      q[0 * lq + j] = x.hi;
+      q[1 * lq + j] = y.hi;
+      q[2 * lq + j] = z.hi;
+      q[3 * lq + j] = x.lo;
+      q[4 * lq + j] = y.lo;
+      q[5 * lq + j] = z.lo;
+    }
+  }
+
+  // s of m-tile m's rows x the tile's columns (2t, 2t + 1), 0 past cnt
+  __device__ __forceinline__ float pair_s(int m, int e, float rd2,
+                                          float lam_j, bool live) const {
+    const float r2 = fmaxf(fminf(rd2, k.h2), k.eps);
+    const float u = k.h - r2 * rsqrt_normal(r2);
+    const float v = (u * u) * (olam[m][e >> 1] + lam_j);
+    return live ? v : 0.f;
+  }
+
+  // kProjMma: the 16 candidates at c0 into dpr, the tile's delta-p;
+  // only the ragged tail (kTail) masks
+  template <bool kTail>
+  __device__ __forceinline__ void tile16(const unsigned char* planes, int c0,
+                                         int cnt, float (&dpr)[MT][4]) {
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(planes);
+    const float* cn2 = reinterpret_cast<const float*>(words + kRd2Planes * kLd);
+    const float* lam = cn2 + kStageLen;
+    const uint32_t* qwords = reinterpret_cast<const uint32_t*>(lam + kStageLen);
+    const int g = lay.g, t = lay.t;
+    const Rd2Tile b[2] = {rd2_tile(words, cn2, c0, g, t),
+                          rd2_tile(words, cn2, c0 + 8, g, t)};
+    const float2 lj[2] = {
+        *reinterpret_cast<const float2*>(lam + c0 + 2 * t),
+        *reinterpret_cast<const float2*>(lam + c0 + 8 + 2 * t)};
+    // B column g: component g of candidates c0 + (2t, 2t+1, 2t+8, 2t+9);
+    // columns 6 and 7 are zero (selects, so the warp stays converged)
+    const int qg = g < kProjPlanes ? g : 0;
+    uint32_t b0 = qwords[qg * kLdq + (c0 >> 1) + t];
+    uint32_t b1 = qwords[qg * kLdq + (c0 >> 1) + 4 + t];
+    b0 = g < kProjPlanes ? b0 : 0u;
+    b1 = g < kProjPlanes ? b1 : 0u;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float s[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + 8 * h + 2 * t;
+        float rd2[4];
+        rd2_mma(a[m], on2[m], b[h], rd2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[h][e] = pair_s(m, e, rd2[e], e & 1 ? lj[h].y : lj[h].x,
+                           !kTail || col + (e & 1) < cnt);
         }
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float r2 = fmaxf(fminf(rd2[e], h2), eps);
-        const float tt = h2 - r2;
-        const float u = h - r2 * rsqrtf(r2);
-        const float t2 = tt * tt;
-        const float u2 = u * u;
-        const bool live = col + (e & 1) < cnt;
-        s_rho[e] += live ? t2 * tt : 0.f;
-        s_g2[e] += live ? (u2 * u2) * r2 : 0.f;
+      for (int e = 0; e < 4; ++e) acc_s[m][e] += s[0][e] + s[1][e];
+      // A over k = the 16 candidates: tile c0 in k 0-7, c0 + 8 in 8-15;
+      // register r holds (row g, g + 8, g, g + 8)'s columns of tile r / 2
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split_pair(s[r >> 1][2 * (r & 1)], s[r >> 1][2 * (r & 1) + 1], ah[r],
+                   al[r]);
       }
+      mma(dpr[m], ah, b0, b1);                            // sh.[ch | cl]
+      mma(dpr[m], al, g < 3 ? b0 : 0u, g < 3 ? b1 : 0u);  // sl.[ch | 0]
     }
-  };
-  stream(pin, ranges + blockIdx.x * (2 * kWindows), tile, stage, body);
-
-  const float2 rho = row_sums<kSumMma>(s_rho);
-  const float2 g2 = row_sums<kSumMma>(s_g2);
-  if (t == 0) {
-    // lambda as pbf_window.cu forms it: c = rho / rho0 - 1, -c / (g2 + eps)
-    const float ca = (poly6 * rho.x) * inv_rho0 - 1.f;
-    const float cb = (poly6 * rho.y) * inv_rho0 - 1.f;
-    const float lam_a = -ca / (l2 * g2.x + relax_eps);
-    const float lam_b = -cb / (l2 * g2.y + relax_eps);
-    if (ia < n) pout[ia] = make_float4(pa.x, pa.y, pa.z, lam_a);
-    if (ib < n) pout[ib] = make_float4(pb.x, pb.y, pb.z, lam_b);
-  }
-}
-
-template <bool kProjMma, bool kSumMma>
-__global__ void project_tc_kernel(const float4* __restrict__ pin,
-                                  float4* __restrict__ pout,
-                                  const int* __restrict__ ranges, int n,
-                                  int tile, float h, float h2, float eps,
-                                  float k_proj, float s_corr) {
-  static_assert(kProjMma || kSumMma, "the FP32 form is pbf_window.cu's");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = tile + 8;       // rd2 plane stride in words
-  const int ldq = tile / 2 + 4;  // delta-p plane stride in words
-  // kProjMma: rd2 word planes, |c|^2, lambda, delta-p bf16 planes;
-  // otherwise the float4 candidates
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
-  float* cn2 = reinterpret_cast<float*>(words + kRd2Words * ld);
-  float* lam = cn2 + tile;
-  __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(lam + tile);
-  const uint32_t* qwords = reinterpret_cast<const uint32_t*>(planes);
-  float4* cand = reinterpret_cast<float4*>(smem);
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int own = blockDim.x >> 1;
-  const int ia = blockIdx.x * own + (threadIdx.x >> 5) * 16 + g;
-  const int ib = ia + 8;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 pa = ia < n ? pin[ia] : zero4;
-  const float4 pb = ib < n ? pin[ib] : zero4;
-  const float olam[2] = {pa.w + s_corr, pb.w + s_corr};
-  uint32_t a[4];
-  float on2[2] = {0.f, 0.f};
-  if constexpr (kProjMma) {
-    rd2_a_frag(pa, pb, t, a);
-    on2[0] = sq3(pa.x, pa.y, pa.z);
-    on2[1] = sq3(pb.x, pb.y, pb.z);
   }
 
-  // kProjMma: acc_s (element-wise s) and the delta-p mma accumulator dp;
-  // otherwise element-wise s * (dx, dy, dz)
-  float acc_s[4] = {0.f, 0.f, 0.f, 0.f};
-  float dp[4] = {0.f, 0.f, 0.f, 0.f};
-  float ax[4] = {0.f, 0.f, 0.f, 0.f};
-  float ay[4] = {0.f, 0.f, 0.f, 0.f};
-  float az[4] = {0.f, 0.f, 0.f, 0.f};
-  auto stage = [&](int k, const float4& c) {
-    if constexpr (kProjMma) {
-      stage_rd2(c, k, ld, words, cn2);
-      lam[k] = c.w;
-      const Split x = split2(c.x), y = split2(c.y), z = split2(c.z);
-      const int lq = 2 * ldq;  // plane stride in bf16
-      planes[0 * lq + k] = x.hi;
-      planes[1 * lq + k] = y.hi;
-      planes[2 * lq + k] = z.hi;
-      planes[3 * lq + k] = x.lo;
-      planes[4 * lq + k] = y.lo;
-      planes[5 * lq + k] = z.lo;
-    } else {
-      cand[k] = c;
-    }
-  };
-  // s for the 8-candidate tile at c0: s[e] for (rows g, g + 8) x
-  // (candidates c0 + 2t, c0 + 2t + 1), 0 past cnt
-  auto pair_s = [&](int c0, int cnt, float (&s)[4], float (&dx)[4],
-                    float (&dy)[4], float (&dz)[4]) {
-    const int col = c0 + 2 * t;
-    float rd2[4];
-    float lj[2];
-    if constexpr (kProjMma) {
-      float d[4];
-      rd2_dot(a, words, ld, c0, g, t, d);
-      const float2 cn = *reinterpret_cast<const float2*>(cn2 + col);
-      const float2 l = *reinterpret_cast<const float2*>(lam + col);
-      lj[0] = l.x;
-      lj[1] = l.y;
+  // the kSumMma-only form: the 8 candidates at c0 of the raw tile
+  template <bool kTail>
+  __device__ __forceinline__ void tile8(const float4* tile, int c0, int cnt) {
+    const int col = c0 + 2 * lay.t;
+    float4 c[2];
+    ring_pair<kTail>(tile, col, cnt, c);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        rd2[e] = (on2[e >> 1] - (d[e] + d[e])) + (e & 1 ? cn.y : cn.x);
-      }
-    } else {
-      const float4 c[2] = {cand[col], cand[col + 1]};
-      lj[0] = c[0].w;
-      lj[1] = c[1].w;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4& o = e < 2 ? pa : pb;
-        dx[e] = o.x - c[e & 1].x;
-        dy[e] = o.y - c[e & 1].y;
-        dz[e] = o.z - c[e & 1].z;
-        rd2[e] = dx[e] * dx[e] + dy[e] * dy[e] + dz[e] * dz[e];
+        const float3& p = o[m][e >> 1];
+        const float dx = p.x - c[e & 1].x;
+        const float dy = p.y - c[e & 1].y;
+        const float dz = p.z - c[e & 1].z;
+        const float s = pair_s(m, e, dx * dx + dy * dy + dz * dz, c[e & 1].w,
+                               !kTail || col + (e & 1) < cnt);
+        ax[m][e] += s * dx;
+        ay[m][e] += s * dy;
+        az[m][e] += s * dz;
       }
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float r2 = fmaxf(fminf(rd2[e], h2), eps);
-      const float u = h - r2 * rsqrtf(r2);
-      const float v = (u * u) * (olam[e >> 1] + lj[e & 1]);
-      s[e] = col + (e & 1) < cnt ? v : 0.f;
-    }
-  };
-  auto body = [&](int cnt) {
+  }
+
+  __device__ __forceinline__ void consume(const float4* tile,
+                                          const unsigned char* planes,
+                                          int cnt) {
     if constexpr (kProjMma) {
-      // this round's delta-p on the tensor cores, added into dp in float32
+      // this tile's delta-p on the tensor cores, added into dp in float32
       // on the CUDA cores, as the TPU adds each block's MXU product into
       // its accumulator
-      float dpr[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c0 = 0; c0 < cnt; c0 += 16) {
-        float s0[4], s1[4], unused[4];
-        pair_s(c0, cnt, s0, unused, unused, unused);
-        pair_s(c0 + 8, cnt, s1, unused, unused, unused);
-        Split sp[8];
+      float dpr[MT][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc_s[e] += s0[e] + s1[e];
-          sp[e] = split2(s0[e]);
-          sp[e + 4] = split2(s1[e]);
-        }
-        // A over k = the 16 candidates: s0 in k 0-7, s1 in k 8-15
-        uint32_t ah[4], al[4];
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          ah[r] = pack(sp[2 * r].hi, sp[2 * r + 1].hi);
-          al[r] = pack(sp[2 * r].lo, sp[2 * r + 1].lo);
-        }
-        // B column g: component g of candidates c0 + (2t, 2t+1, 2t+8, 2t+9);
-        // columns 6 and 7 are zero (selects, so the warp stays converged)
-        const int qg = g < kProjPlanes ? g : 0;
-        uint32_t b0 = qwords[qg * ldq + (c0 >> 1) + t];
-        uint32_t b1 = qwords[qg * ldq + (c0 >> 1) + 4 + t];
-        b0 = g < kProjPlanes ? b0 : 0u;
-        b1 = g < kProjPlanes ? b1 : 0u;
-        mma(dpr, ah, b0, b1);                            // sh.[ch | cl]
-        mma(dpr, al, g < 3 ? b0 : 0u, g < 3 ? b1 : 0u);  // sl.[ch | 0]
+        for (int e = 0; e < 4; ++e) dpr[m][e] = 0.f;
       }
+      int c0 = 16 * lay.cg;
+      for (; c0 + 16 <= cnt; c0 += 16 * L::CG) {
+        tile16<false>(planes, c0, cnt, dpr);
+      }
+      if (c0 < cnt) tile16<true>(planes, c0, cnt, dpr);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[e] += dpr[e];
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[m][e] += dpr[m][e];
+      }
     } else {
-      for (int c0 = 0; c0 < cnt; c0 += 8) {
-        float s[4], dx[4], dy[4], dz[4];
-        pair_s(c0, cnt, s, dx, dy, dz);
+      int c0 = 8 * lay.cg;
+#pragma unroll 2
+      for (; c0 + 8 <= cnt; c0 += 8 * L::CG) tile8<false>(tile, c0, cnt);
+      if (c0 < cnt) tile8<true>(tile, c0, cnt);
+    }
+  }
+
+  __device__ __forceinline__ void end(float4* red) {
+    float4* r = red + lay.cg * kOwn;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ax[e] += s[e] * dx[e];
-          ay[e] += s[e] * dy[e];
-          az[e] += s[e] * dz[e];
+    for (int m = 0; m < MT; ++m) {
+      float4 out[2];
+      if constexpr (kProjMma) {
+        const float2 S = row_sums<kSumMma>(acc_s[m]);
+        // dp columns 2t, 2t+1 of rows g, g+8; acc_p[a] = col a + col a+3
+        const int q = (threadIdx.x & 31) & ~3;
+        float c[2][6];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            c[h][2 * j] = __shfl_sync(0xffffffffu, dp[m][2 * h], q + j);
+            c[h][2 * j + 1] =
+                __shfl_sync(0xffffffffu, dp[m][2 * h + 1], q + j);
+          }
         }
+        out[0] = make_float4(S.x, c[0][0] + c[0][3], c[0][1] + c[0][4],
+                             c[0][2] + c[0][5]);
+        out[1] = make_float4(S.y, c[1][0] + c[1][3], c[1][1] + c[1][4],
+                             c[1][2] + c[1][5]);
+      } else {
+        const float2 sx = row_sums<kSumMma>(ax[m]);
+        const float2 sy = row_sums<kSumMma>(ay[m]);
+        const float2 sz = row_sums<kSumMma>(az[m]);
+        out[0] = make_float4(sx.x, sy.x, sz.x, 0.f);
+        out[1] = make_float4(sx.y, sy.y, sz.y, 0.f);
+      }
+      if (lay.t == 0) {
+        r[lay.row(m, 0)] = out[0];
+        r[lay.row(m, 1)] = out[1];
       }
     }
-  };
-  stream(pin, ranges + blockIdx.x * (2 * kWindows), tile, stage, body);
+  }
 
-  float out[2][3];
-  if constexpr (kProjMma) {
-    const float2 S = row_sums<kSumMma>(acc_s);
-    // dp columns 2t, 2t+1 of rows g, g+8; acc_p[a] = col a + col a+3
-    const int q = lane & ~3;
-    float c[2][6];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
+  __device__ __forceinline__ float4 finish(float4 me, float4 s) const {
+    if constexpr (kProjMma) {
+      // own3 + k * (own3 * S - acc_p), s = (S, acc_p)
+      const float own3[3] = {me.x, me.y, me.z};
+      const float acc_p[3] = {s.y, s.z, s.w};
+      float out[3];
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        c[r][2 * j] = __shfl_sync(0xffffffffu, dp[2 * r], q + j);
-        c[r][2 * j + 1] = __shfl_sync(0xffffffffu, dp[2 * r + 1], q + j);
+        const float diff = __fsub_rn(__fmul_rn(own3[j], s.x), acc_p[j]);
+        out[j] = __fadd_rn(own3[j], __fmul_rn(k.k_proj, diff));
       }
+      return make_float4(out[0], out[1], out[2], me.w);
+    } else {
+      return pair_items::finish<Pass::kProject>(me, s, k);
     }
-    const float Sr[2] = {S.x, S.y};
-    const float4* o[2] = {&pa, &pb};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float own3[3] = {o[r]->x, o[r]->y, o[r]->z};
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float acc_p = c[r][j] + c[r][j + 3];
-        const float diff = __fsub_rn(__fmul_rn(own3[j], Sr[r]), acc_p);
-        out[r][j] = __fadd_rn(own3[j], __fmul_rn(k_proj, diff));
-      }
-    }
-  } else {
-    const float2 sx = row_sums<kSumMma>(ax);
-    const float2 sy = row_sums<kSumMma>(ay);
-    const float2 sz = row_sums<kSumMma>(az);
-    out[0][0] = pa.x + k_proj * sx.x;
-    out[0][1] = pa.y + k_proj * sy.x;
-    out[0][2] = pa.z + k_proj * sz.x;
-    out[1][0] = pb.x + k_proj * sx.y;
-    out[1][1] = pb.y + k_proj * sy.y;
-    out[1][2] = pb.z + k_proj * sz.y;
   }
-  if (t == 0) {
-    if (ia < n) pout[ia] = make_float4(out[0][0], out[0][1], out[0][2], pa.w);
-    if (ib < n) pout[ib] = make_float4(out[1][0], out[1][1], out[1][2], pb.w);
-  }
+};
+
+template <bool kRd2Mma, bool kSumMma, int kOwn>
+__global__ void __launch_bounds__(kThreads)
+    density_tc_kernel(const float4* __restrict__ pin,
+                      float4* __restrict__ pout,
+                      const int* __restrict__ ranges,
+                      const int* __restrict__ seg_prefix,
+                      const int* __restrict__ seg_len_p,
+                      float4* __restrict__ partials,
+                      int* __restrict__ counters, int n, int num_chunks,
+                      Consts k) {
+  DensityTc<kRd2Mma, kSumMma, kOwn> body(k);
+  run_items(body, pin, pout, ranges, seg_prefix, seg_len_p, partials,
+            counters, n, num_chunks);
 }
 
-// Dynamic shared memory of each form, in bytes.
-int density_tc_smem(int tile, bool rd2_mma) {
-  return rd2_mma ? (kRd2Words * (tile + 8) + tile) * 4 : tile * 16;
+template <bool kProjMma, bool kSumMma, int kOwn>
+__global__ void __launch_bounds__(kThreads)
+    project_tc_kernel(const float4* __restrict__ pin,
+                      float4* __restrict__ pout,
+                      const int* __restrict__ ranges,
+                      const int* __restrict__ seg_prefix,
+                      const int* __restrict__ seg_len_p,
+                      float4* __restrict__ partials,
+                      int* __restrict__ counters, int n, int num_chunks,
+                      Consts k) {
+  ProjectTc<kProjMma, kSumMma, kOwn> body(k);
+  run_items(body, pin, pout, ranges, seg_prefix, seg_len_p, partials,
+            counters, n, num_chunks);
 }
 
-int project_tc_smem(int tile, bool proj_mma) {
-  return proj_mma ? (kRd2Words * (tile + 8) + 2 * tile +
-                     kProjPlanes * (tile / 2 + 4)) * 4
-                  : tile * 16;
+template <bool kMma, bool kSumMma, int kOwn>
+int launch_form(bool density, const Launch& a, const Consts& k) {
+  if (density) {
+    return launch_items<density_tc_kernel<kMma, kSumMma, kOwn>>(
+        smem_bytes<DensityTc<kMma, kSumMma, kOwn>>(), a, k);
+  }
+  return launch_items<project_tc_kernel<kMma, kSumMma, kOwn>>(
+      smem_bytes<ProjectTc<kMma, kSumMma, kOwn>>(), a, k);
+}
+
+// (the pass's mma switch, sum_mma) -> one of the three forms
+template <int kOwn>
+int launch_own(bool density, bool mma_on, bool sum_mma, const Launch& a,
+               const Consts& k) {
+  if (mma_on) {
+    return sum_mma ? launch_form<true, true, kOwn>(density, a, k)
+                   : launch_form<true, false, kOwn>(density, a, k);
+  }
+  if (sum_mma) return launch_form<false, true, kOwn>(density, a, k);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(int own, bool density, bool mma_on, bool sum_mma,
+             const Launch& a, const Consts& k) {
+  switch (own) {
+    case 32:
+      return launch_own<32>(density, mma_on, sum_mma, a, k);
+    case 64:
+      return launch_own<64>(density, mma_on, sum_mma, a, k);
+    case 128:
+      return launch_own<128>(density, mma_on, sum_mma, a, k);
+    case 256:
+      return launch_own<256>(density, mma_on, sum_mma, a, k);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
+// The FP32 launchers' arguments (pbf_window.cu: pin, pout, ranges,
+// seg_prefix, seg_len, partials, counters, n, num_chunks, own), then the
+// pass's two switches and its constants.
 extern "C" int launch_density_tc(const void* pin, void* pout,
-                                 const void* ranges, int n, int num_chunks,
-                                 int threads, int tile, int rd2_mma,
-                                 int sum_mma, float h, float h2, float eps,
-                                 float poly6, float l2, float inv_rho0,
-                                 float relax_eps, void* stream) {
-  auto* kernel = rd2_mma ? (sum_mma ? density_tc_kernel<true, true>
-                                    : density_tc_kernel<true, false>)
-                         : density_tc_kernel<false, true>;
-  if (!rd2_mma && !sum_mma) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<num_chunks, threads, density_tc_smem(tile, rd2_mma),
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pin), static_cast<float4*>(pout),
-      static_cast<const int*>(ranges), n, tile, h, h2, eps, poly6, l2,
-      inv_rho0, relax_eps);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* ranges, const void* seg_prefix,
+                                 const void* seg_len, void* partials,
+                                 void* counters, int n, int num_chunks,
+                                 int own, int rd2_mma, int sum_mma, float h,
+                                 float h2, float eps, float poly6, float l2,
+                                 float inv_rho0, float relax_eps,
+                                 void* stream) {
+  return dispatch(own, true, rd2_mma, sum_mma,
+                  {pin, pout, ranges, seg_prefix, seg_len, partials,
+                   counters, n, num_chunks, stream},
+                  {h, h2, eps, poly6, l2, inv_rho0, relax_eps, 0.f, 0.f});
 }
 
 extern "C" int launch_project_tc(const void* pin, void* pout,
-                                 const void* ranges, int n, int num_chunks,
-                                 int threads, int tile, int proj_mma,
-                                 int sum_mma, float h, float h2, float eps,
-                                 float k_proj, float s_corr, void* stream) {
-  auto* kernel = proj_mma ? (sum_mma ? project_tc_kernel<true, true>
-                                     : project_tc_kernel<true, false>)
-                          : project_tc_kernel<false, true>;
-  if (!proj_mma && !sum_mma) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<num_chunks, threads, project_tc_smem(tile, proj_mma),
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pin), static_cast<float4*>(pout),
-      static_cast<const int*>(ranges), n, tile, h, h2, eps, k_proj, s_corr);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* ranges, const void* seg_prefix,
+                                 const void* seg_len, void* partials,
+                                 void* counters, int n, int num_chunks,
+                                 int own, int proj_mma, int sum_mma, float h,
+                                 float h2, float eps, float k_proj,
+                                 float s_corr, void* stream) {
+  return dispatch(own, false, proj_mma, sum_mma,
+                  {pin, pout, ranges, seg_prefix, seg_len, partials,
+                   counters, n, num_chunks, stream},
+                  {h, h2, eps, 0.f, 0.f, 0.f, 0.f, k_proj, s_corr});
 }
+
+// The tensor-core launchers' interface version: 2 takes the work table (1,
+// without this symbol, took one block per own-chunk and a `tile`).
+extern "C" int pbf_tc_abi() { return 2; }

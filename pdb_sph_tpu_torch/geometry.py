@@ -1,16 +1,18 @@
 """Block geometry of the hand-written CUDA window kernels.
 
-The CUDA counterpart of `pdb_sph_tpu.geometry.KernelGeometry`. The FP32
-kernels in `csrc/pbf_window.cu` split each own-chunk's candidates into
-segments of at most `seg` candidates and run one work item per (chunk,
-segment) on a persistent grid of four-warp blocks: each lane holds
-`own / 32` own rows, the four warps share the candidates, and the
-candidates stream through a ring of `STAGES` shared-memory stages of
-`STAGE_LEN` rows. The tensor-core kernels in `csrc/pbf_tc.cu` launch one
-block per own-chunk with one warp per 16 own rows and stream `tile`
-candidates per round. Nothing of the TPU geometry's lane-alignment
-machinery (shifted copies, 128-lane segments, DMA ring depth, grid
-batching) has a counterpart here: the windows are exact element ranges.
+The CUDA counterpart of `pdb_sph_tpu.geometry.KernelGeometry`. Every pair
+kernel (`csrc/pair_items.cuh`) splits each own-chunk's candidates into
+segments of at most `seg` candidates and runs one work item per (chunk,
+segment) on a persistent grid of four-warp blocks, the candidates
+streaming through a ring of `STAGES` shared-memory stages of `STAGE_LEN`
+rows. In the FP32 kernels (`csrc/pbf_window.cu`) each lane holds
+`own / 32` own rows and the four warps share each stage's candidates; in
+the tensor-core kernels (`csrc/pbf_tc.cu`) the warps split the own rows
+into m16 tiles, `TC_COL_GROUPS` of them splitting each stage's candidates
+instead, and the forms with an rd2 mma convert each stage into fragment
+planes. Nothing of the TPU geometry's lane-alignment machinery (shifted
+copies, 128-lane segments, DMA ring depth, grid batching) has a
+counterpart here: the windows are exact element ranges.
 
 The geometry is data, threaded through the config like every other
 constant. `geometry_from_env()` is `SimConfig.geom`'s default factory, as in
@@ -27,12 +29,22 @@ import os
 # the kernels use dynamic shared memory without raising the 48 KiB default
 # opt-in limit
 _MAX_SMEM_BYTES = 48 * 1024
-# the FP32 kernels' block: WARPS warps share each ring stage of STAGE_LEN
+# every pair kernel's block: WARPS warps share each ring stage of STAGE_LEN
 # candidates, STAGES stages in flight (kWarps, kStageLen and kStages in
-# csrc/pbf_window.cu)
+# csrc/pair_items.cuh)
 WARPS = 4
 STAGES = 3
 STAGE_LEN = 256
+# the tensor-core kernels' warps that split each stage's candidates
+# (kColGroups in csrc/pbf_tc.cu); the others split the own rows
+TC_COL_GROUPS = 1
+# bytes of a stage converted into the tensor-core fragment planes
+# (kRd2PlaneBytes, kProjPlaneBytes in csrc/pbf_tc.cu): four rd2 word planes
+# of STAGE_LEN + 8 words and |c|^2; delta-p adds lambda and six bf16 planes
+# of STAGE_LEN / 2 + 4 words
+_RD2_PLANE_BYTES = 4 * (4 * (STAGE_LEN + 8) + STAGE_LEN)
+_PROJ_PLANE_BYTES = _RD2_PLANE_BYTES + 4 * (STAGE_LEN + 6 * (STAGE_LEN // 2
+                                                             + 4))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +58,8 @@ class KernelGeometry:
     bf16 hi/lo split dot (`mxu_rd2`, density), and the project pass's rd2
     and delta-p contraction on the tensor cores (`mxu_proj`)."""
 
-    own: int = 64    # own-chunk rows (FP32 kernels: own / 32 per lane)
-    tile: int = 128  # candidates staged per round (tensor-core kernels)
-    # the FP32 kernels' candidates per work item (the segment length S),
+    own: int = 64  # own-chunk rows (FP32 kernels: own / 32 per lane)
+    # the pair kernels' candidates per work item (the segment length S),
     # chosen by the sweep of benchmarks_torch/kernel_ab.py (PERF.md, PR 4)
     seg: int = 512
     mxu_sum: bool = False
@@ -56,43 +67,45 @@ class KernelGeometry:
     mxu_proj: bool = False
 
     @property
-    def tc_threads(self) -> int:
-        """Threads per block of the tensor-core kernels: one warp per 16
-        own rows."""
-        return self.own // 16 * 32
+    def tc_col_groups(self) -> int:
+        """Warps of a tensor-core block that split each stage's candidates:
+        TC_COL_GROUPS, or more where the own rows are too few for one m16
+        tile a warp (`col_groups` in csrc/pbf_tc.cu)."""
+        return max(TC_COL_GROUPS, 64 // self.own)
+
+    @property
+    def tc_m_tiles(self) -> int:
+        """m16 tiles of own rows that each warp of a tensor-core block
+        carries."""
+        return self.own * self.tc_col_groups // (16 * WARPS)
 
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory per block of the FP32 kernels: the ring of
         STAGES stages of float4 candidates and a float4 partial per own row
-        and warp, after the stages' barriers (`window_smem_bytes` in
-        csrc/pbf_window.cu)."""
+        and warp, after the stages' barriers (`smem_bytes` in
+        csrc/pair_items.cuh)."""
         return 32 + 16 * (STAGES * STAGE_LEN + WARPS * self.own)
 
     @property
     def tc_smem_bytes(self) -> int:
-        """The largest dynamic shared memory of a tensor-core kernel:
-        project_tc_kernel<kProjMma>'s five rd2 word planes, |c|^2, lambda
-        and six bf16 delta-p planes (`project_tc_smem` in csrc/pbf_tc.cu)."""
-        return 4 * (5 * (self.tile + 8) + 2 * self.tile
-                    + 6 * (self.tile // 2 + 4))
+        """The largest dynamic shared memory of a tensor-core kernel,
+        project_tc_kernel<kProjMma>'s: the ring, a float4 partial per own
+        row and column group, and two stages converted into fragment
+        planes."""
+        return (32 + 16 * (STAGES * STAGE_LEN + self.tc_col_groups * self.own)
+                + 2 * _PROJ_PLANE_BYTES)
 
     def validate(self) -> None:
         if self.own not in (32, 64, 128, 256):
             raise ValueError(f"own ({self.own}) must be one of 32, 64, 128, "
                              "256 (whole warps, one thread per own row)")
-        if self.own % 16:
-            raise ValueError(f"own ({self.own}) must be a multiple of 16 "
-                             "(one tensor-core warp per 16 own rows)")
-        if self.tile <= 0 or self.tile % 32 != 0:
-            raise ValueError(f"tile ({self.tile}) must be a positive "
-                             "multiple of 32")
         if self.seg <= 0 or self.seg % 32 != 0:
             raise ValueError(f"seg ({self.seg}) must be a positive multiple "
                              "of 32")
         smem = max(self.smem_bytes, self.tc_smem_bytes)
         if smem > _MAX_SMEM_BYTES:
-            raise ValueError(f"tile ({self.tile}) needs {smem} bytes of "
+            raise ValueError(f"own ({self.own}) needs {smem} bytes of "
                              f"shared memory (> {_MAX_SMEM_BYTES})")
 
 

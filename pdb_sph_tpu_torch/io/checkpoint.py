@@ -7,11 +7,13 @@ carries across the two packages in both directions:
   fields as JSON) are the JAX package's keys.
 - `config_json` carries no `geom`: the JAX loader builds its
   `KernelGeometry(**geom)` from that key, and the port's geometry (`own`,
-  `tile`, the tensor-core switches) has other fields. Without the key the
+  `seg`, the tensor-core switches) has other fields. Without the key the
   JAX package takes its default geometry.
 - The port's `KernelGeometry` goes under a key of its own,
   `torch_geom_json`, which the JAX loader never reads; a file written
-  before the geometry had the tensor-core switches loads with them off.
+  before the geometry had the tensor-core switches loads with them off,
+  and one written while it had a `tile` (the tensor-core kernels' staging
+  round before they shared the FP32 kernels' ring) loads without it.
   A file without the key (one the JAX package wrote) takes `own` and the
   `mxu_*` switches from the JAX file's `geom` and drops its other fields
   (`interop.config_from_fields`), so a JAX run with `PBF_MXU_*` set
@@ -39,6 +41,8 @@ from ..utils.platform import resolve_device
 
 FORMAT_VERSION = 1
 GEOM_KEY = "torch_geom_json"
+# fields an older port geometry carried that no kernel reads any more
+RETIRED_GEOM_FIELDS = ("tile",)
 
 
 def _json_bytes(obj) -> np.bytes_:
@@ -83,7 +87,10 @@ def load(path: str, device: torch.device | str = "cuda"
         cfg = interop.config_from_fields(
             json.loads(bytes(z["config_json"]).decode()))
         if GEOM_KEY in z.files:
-            geom = KernelGeometry(**json.loads(bytes(z[GEOM_KEY]).decode()))
+            geom = json.loads(bytes(z[GEOM_KEY]).decode())
+            for key in RETIRED_GEOM_FIELDS:
+                geom.pop(key, None)
+            geom = KernelGeometry(**geom)
             cfg = dataclasses.replace(cfg, geom=geom)
         arrays = [z[k] for k in ("x", "v", "ids", "step")]
     cfg.validate()

@@ -28,15 +28,16 @@ way and its delta-p as own3 * S - s @ cand3^T with s split too; `mxu_sum`
 takes the row sums on the tensor cores at float32 precision, which is the
 plain versions' `.sum(-1)` as a function.
 
-The FP32 kernels (`csrc/pbf_window.cu`) split the work into items of
-bounded size: the plan also cuts each chunk's candidates, the virtual
-concatenation of its nine ranges, into segments of `seg_len` candidates and
-gives the exclusive prefix of segments per chunk (`seg_prefix`); one item
-is one (chunk, segment). Each item's row sums go to a scratch slot
-(`PairScratch`, which the caller may allocate once and pass on), and the
-chunk's last item adds them in segment order. `split=True` on the plain
-FP32 versions takes the row sums the same way (`segment_sum`), so the CPU
-tests can hold the split against the unsplit sum.
+Every pair kernel (`csrc/pair_items.cuh`, shared by `csrc/pbf_window.cu`
+and `csrc/pbf_tc.cu`) splits the work into items of bounded size: the
+plan also cuts each chunk's candidates, the virtual concatenation of its
+nine ranges, into segments of `seg_len` candidates and gives the exclusive
+prefix of segments per chunk (`seg_prefix`); one item is one (chunk,
+segment). Each item's row sums go to a scratch slot (`PairScratch`, which
+the caller may allocate once and pass on), and the chunk's last item adds
+them in segment order. `split=True` on the plain versions takes the sums
+the same way (`segment_sum`, and the split product of delta-p per
+segment), so the CPU tests can hold the split against the unsplit sum.
 
 Each pass is a wrapper that dispatches on the tensor's device: a CPU tensor
 goes to the plain torch version beside it (`*_ref`), a CUDA tensor launches
@@ -68,7 +69,7 @@ LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0,
 
 # (own rows x candidates) pair elements per batch of the plain versions
 _REF_PAIRS_PER_BATCH = 1 << 22
-# work items the FP32 kernels' scratch holds, per own-chunk (a float4 per
+# work items the pair kernels' scratch holds, per own-chunk (a float4 per
 # own row of each: 16 KiB a chunk at own 64): a plan whose candidates would
 # need more items at the geometry's `seg` takes longer segments instead
 # (work_table), so no candidate is dropped
@@ -89,7 +90,7 @@ class WindowPlan(NamedTuple):
         the JAX layout [table_overflow, plan_overflow, nonfinite]: the plan
         has no capacity, since the kernels loop over each range whatever
         its length, so nothing can be truncated.
-    seg_prefix: (num_chunks + 1,) int32 — the FP32 kernels' work table:
+    seg_prefix: (num_chunks + 1,) int32 — the pair kernels' work table:
         chunk c owns items seg_prefix[c] .. seg_prefix[c + 1] - 1, one per
         segment of seg_len candidates (at least one, so an all-pad chunk's
         item writes its rows); seg_prefix[-1] is the item count.
@@ -105,7 +106,7 @@ class WindowPlan(NamedTuple):
 
 
 class PairScratch(NamedTuple):
-    """What the FP32 kernels write between their items: the kernel itself
+    """What the pair kernels write between their items: the kernel itself
     allocates nothing.
 
     partials: (ITEMS_PER_CHUNK * n_pad, 4) float32 — one float4 of row sums
@@ -121,7 +122,7 @@ class PairScratch(NamedTuple):
 
 def alloc_scratch(cfg: SimConfig, n_pad: int,
                   device: torch.device | str) -> PairScratch:
-    """The FP32 kernels' scratch for (n_pad, 4) inputs, counters zeroed."""
+    """The pair kernels' scratch for (n_pad, 4) inputs, counters zeroed."""
     num_chunks = n_pad // cfg.geom.own
     return PairScratch(
         partials=torch.empty((ITEMS_PER_CHUNK * n_pad, 4),
@@ -313,8 +314,8 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
 
 def segment_sum(terms: torch.Tensor, seg_len: int) -> torch.Tensor:
     """Sums over the last axis, a chunk's candidates in plan order, as the
-    FP32 kernels split them: a partial sum per segment of seg_len
-    candidates, the partials then added in segment order."""
+    kernels split them: a partial sum per segment of seg_len candidates,
+    the partials then added in segment order."""
     count = terms.shape[-1]
     if count <= seg_len:
         return terms.sum(dim=-1)
@@ -336,6 +337,15 @@ def _row_sum(plan: WindowPlan, split: bool):
     return lambda t: segment_sum(t, seg_len)
 
 
+def _segments(plan: WindowPlan, split: bool, length: int) -> list[slice]:
+    """The pieces of a candidate axis of `length` that the kernels sum
+    apart: the plan's segments with `split`, else the whole axis."""
+    if not split:
+        return [slice(None)]
+    seg_len = int(plan.seg_len)
+    return [slice(a, a + seg_len) for a in range(0, length, seg_len)]
+
+
 def _store(out: torch.Tensor, row0: int, rows: torch.Tensor, n: int) -> None:
     """Write a batch's (b, own, 4) results to out rows [row0, n)."""
     rows = rows.reshape(-1, 4)
@@ -349,11 +359,8 @@ def density_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
     """Plain torch version of the density kernels: (n_pad, 4) positions ->
     (n_pad, 4) with column 3 = lambda for the first n rows. rd2 takes the
     split-dot form when `cfg.geom.mxu_rd2`; the row sums are `.sum(-1)`,
-    also the plain version of `mxu_sum`, or with `split` the FP32 kernel's
+    also the plain version of `mxu_sum`, or with `split` the kernels'
     segment sums (`segment_sum`)."""
-    if split and (cfg.geom.mxu_rd2 or cfg.geom.mxu_sum):
-        raise ValueError("split sums are the FP32 kernel's; a tensor-core "
-                         "switch of the density pass is on")
     if out is None:
         out = torch.zeros_like(p4)
     h, h2 = f32(cfg.h), f32(cfg.h2)
@@ -401,10 +408,8 @@ def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
     `_project_kernel_mxu` (pallas_pbf.py:525-582): split-dot rd2, and
     own3 + k * (own3 * S - acc_p) with S the row sums of s and acc_p the
     split product of s and the candidates' positions. `split` takes the
-    FP32 form's sums as its kernel's segment sums."""
-    if split and (cfg.geom.mxu_proj or cfg.geom.mxu_sum):
-        raise ValueError("split sums are the FP32 kernel's; a tensor-core "
-                         "switch of the project pass is on")
+    sums as the kernels do: the row sums per segment, and acc_p as one
+    split product per segment, each added in segment order."""
     if out is None:
         out = torch.zeros_like(p4)
     row_sum = _row_sum(plan, split)
@@ -420,9 +425,14 @@ def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
         s = torch.where(mask, s, torch.zeros_like(s))
         if mxu:
             own3 = mine[..., :3]
-            acc_p = dot3(*bf16_split(s), *bf16_split(cand[..., :3]),
-                         _cand_dot)
-            moved = own3 + k_proj * (own3 * s.sum(dim=-1)[..., None] - acc_p)
+            sh, sl = bf16_split(s)
+            ch, cl = bf16_split(cand[..., :3])
+            acc_p = None
+            for piece in _segments(plan, split, s.shape[-1]):
+                part = dot3(sh[..., piece], sl[..., piece], ch[:, piece],
+                            cl[:, piece], _cand_dot)
+                acc_p = part if acc_p is None else acc_p + part
+            moved = own3 + k_proj * (own3 * row_sum(s)[..., None] - acc_p)
             moved = moved.unbind(-1)
         else:
             moved = [mine[..., a] + k_proj * row_sum(s * d[a])
@@ -463,7 +473,7 @@ def _check(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
 
 def _check_work(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
                 scratch: PairScratch) -> None:
-    """The FP32 kernels' extra inputs: the plan's work table and the
+    """The pair kernels' extra inputs: the plan's work table and the
     scratch, shaped for p4 and on its device."""
     n_pad = p4.shape[0]
     num_chunks = n_pad // cfg.geom.own
@@ -497,13 +507,13 @@ def _kernels_and_out(p4: torch.Tensor, out: torch.Tensor | None):
     return kernels, out, torch.cuda.current_stream(p4.device).cuda_stream
 
 
-def _launch_window(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
-                   plan: WindowPlan, n: int, out: torch.Tensor | None,
-                   scratch: PairScratch | None, consts: tuple
-                   ) -> torch.Tensor:
-    """Launch the FP32 kernel `fn_name` (csrc/pbf_window.cu) with (p4, out,
-    ranges, seg_prefix, seg_len, partials, counters, n, chunks, own,
-    *consts, stream)."""
+def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
+            plan: WindowPlan, n: int, out: torch.Tensor | None,
+            scratch: PairScratch | None, consts: tuple) -> torch.Tensor:
+    """Launch the pair kernel `fn_name` (csrc/pbf_window.cu, or
+    csrc/pbf_tc.cu, whose `consts` lead with the pass's two switches) with
+    (p4, out, ranges, seg_prefix, seg_len, partials, counters, n, chunks,
+    own, *consts, stream), its scratch allocated here when None."""
     kernels, out, stream = _kernels_and_out(p4, out)
     if scratch is None:
         scratch = alloc_scratch(cfg, p4.shape[0], p4.device)
@@ -513,21 +523,6 @@ def _launch_window(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
         plan.seg_prefix.data_ptr(), plan.seg_len.data_ptr(),
         scratch.partials.data_ptr(), scratch.counters.data_ptr(), n,
         plan.ranges.shape[0], cfg.geom.own, *consts, stream)
-    kernels.check(code, fn_name)
-    LAUNCHES[name] += 1
-    return out
-
-
-def _launch_tc(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
-               plan: WindowPlan, n: int, out: torch.Tensor | None,
-               consts: tuple) -> torch.Tensor:
-    """Launch the tensor-core kernel `fn_name` (csrc/pbf_tc.cu) with (p4,
-    out, ranges, n, chunks, threads, tile, *consts, stream)."""
-    kernels, out, stream = _kernels_and_out(p4, out)
-    g = cfg.geom
-    code = getattr(kernels.lib, fn_name)(
-        p4.data_ptr(), out.data_ptr(), plan.ranges.data_ptr(), n,
-        plan.ranges.shape[0], g.tc_threads, g.tile, *consts, stream)
     kernels.check(code, fn_name)
     LAUNCHES[name] += 1
     return out
@@ -560,8 +555,8 @@ def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     The port of K1, `_density_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:424),
     with its `mxu_rd2` branch (:445) and `_ksum`'s `mxu_sum` (:318).
     CPU: density_pass_ref. CUDA: window_kernel<kLambda> in the default
-    geometry (its scratch allocated here when `scratch` is None),
-    density_tc_kernel<mxu_rd2, mxu_sum> when either switch is on; or
+    geometry, density_tc_kernel<mxu_rd2, mxu_sum> when either switch is
+    on (the scratch of either allocated here when `scratch` is None); or
     raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
@@ -570,10 +565,10 @@ def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     g = cfg.geom
     if g.mxu_rd2 or g.mxu_sum:
         name = "density_tc" + "_rd2" * g.mxu_rd2 + "_sum" * g.mxu_sum
-        return _launch_tc(name, "launch_density_tc", cfg, p4, plan, n, out,
-                          (int(g.mxu_rd2), int(g.mxu_sum), *consts))
-    return _launch_window("density_lambda", "launch_density_lambda", cfg, p4,
-                          plan, n, out, scratch, consts)
+        return _launch(name, "launch_density_tc", cfg, p4, plan, n, out,
+                       scratch, (int(g.mxu_rd2), int(g.mxu_sum), *consts))
+    return _launch("density_lambda", "launch_density_lambda", cfg, p4, plan,
+                   n, out, scratch, consts)
 
 
 def density_rho(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
@@ -588,8 +583,8 @@ def density_rho(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     if p4.device.type == "cpu":
         return density_rho_ref(cfg, p4, plan, n, out)
     consts = rho_consts(cfg)
-    return _launch_window("density_rho", "launch_density_rho", cfg, p4, plan,
-                          n, out, scratch, consts)
+    return _launch("density_rho", "launch_density_rho", cfg, p4, plan, n,
+                   out, scratch, consts)
 
 
 def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
@@ -602,7 +597,8 @@ def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     with `_project_kernel_mxu` (:525) and `_ksum`'s `mxu_sum` (:318).
     CPU: project_pass_ref. CUDA: window_kernel<kProject> in the default
     geometry, project_tc_kernel<mxu_proj, mxu_sum> when either switch is
-    on; or raise."""
+    on (the scratch of either allocated here when `scratch` is None); or
+    raise."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return project_pass_ref(cfg, p4, plan, n, out)
@@ -610,10 +606,10 @@ def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     g = cfg.geom
     if g.mxu_proj or g.mxu_sum:
         name = "project_tc" + "_proj" * g.mxu_proj + "_sum" * g.mxu_sum
-        return _launch_tc(name, "launch_project_tc", cfg, p4, plan, n, out,
-                          (int(g.mxu_proj), int(g.mxu_sum), *consts))
-    return _launch_window("project", "launch_project", cfg, p4, plan, n, out,
-                          scratch, consts)
+        return _launch(name, "launch_project_tc", cfg, p4, plan, n, out,
+                       scratch, (int(g.mxu_proj), int(g.mxu_sum), *consts))
+    return _launch("project", "launch_project", cfg, p4, plan, n, out,
+                   scratch, consts)
 
 
 def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
@@ -624,7 +620,7 @@ def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
     p_sorted: (n, 3) cell-sorted predicted positions. `bufs`, two
     (n_pad, 4) float32 buffers the caller reuses across steps (allocated
     here when None), carry the ping-pong; their rows past n are never read.
-    `scratch`, the FP32 kernels' scratch, is likewise the caller's to keep
+    `scratch`, the pair kernels' scratch, is likewise the caller's to keep
     (allocated per pass on a card when None). Returns an (n, 3) view of the
     first buffer. `mark(name)`, if given, is called after each pass (stage
     timing)."""

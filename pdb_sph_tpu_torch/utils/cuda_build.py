@@ -1,11 +1,13 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 `load_kernels()` compiles every `csrc/*.cu` of the package, one nvcc per
-source and all started together, and links the objects into one shared
-library with a plain C interface, at first use, into `build/kernels/` under
-the repository root (listed in `.gitignore`), and loads it. The library's
-name carries a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses the last build. A missing nvcc or a failed build
+source and all started together (each with `-I csrc`, where the headers
+they share live), and links the objects into one shared library with a
+plain C interface, at first use, into `build/kernels/` under the
+repository root (listed in `.gitignore`), and loads it. The library's
+name carries a hash of the sources, the `csrc/*.cuh` headers and the
+flags, so an edit of any of them rebuilds and an unchanged tree reuses the
+last build. A missing nvcc or a failed build
 raises; nothing falls back and nothing is fetched. Only the CUDA toolkit is
 read from outside the repository.
 """
@@ -17,6 +19,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,11 +47,10 @@ SIGNATURES = {
                            _F, _F, _F, _P),
     "launch_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _F, _F, _F, _F, _F, _P),
-    # (pin, pout, ranges, n, chunks, threads, tile, switches, constants...,
-    #  stream)
-    "launch_density_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # the same, then the pass's two switches before its constants
+    "launch_density_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _P),
-    "launch_project_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "launch_project_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _P),
 }
 
@@ -82,11 +84,47 @@ def find_nvcc() -> str:
 
 
 def _source_hash(sources: list[Path]) -> str:
+    """Hash of the flags, `sources` and every header that a source may
+    include: those of `csrc/` and those beside a source, which nvcc finds
+    first (a variant header beside a variant source shadows csrc's)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    dirs = sorted({CSRC, *(src.parent for src in sources)})
+    headers = [hdr for d in dirs for hdr in sorted(d.glob("*.cuh"))]
+    for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def compile_command(nvcc: str, src: Path, obj: Path) -> list[str]:
+    """The nvcc command that compiles `src` into `obj`, with the package's
+    headers on the include path."""
+    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+            str(src)]
+
+
+def ptxas_registers(log: str) -> list[str]:
+    """"kernel<template arguments>: R registers" (with its spill stores
+    where it has any) for each kernel in nvcc's `-Xptxas -v` log, the
+    names read from their mangled form."""
+    out, name, spill = [], "?", 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"(window_kernel|density_tc_kernel|"
+                          r"project_tc_kernel)I(.*?)EEv", entry.group(1))
+            name = (f"{m.group(1)}<"
+                    + ",".join(re.findall(r"(?:Lb|Li|E)(\d+)E", m.group(2)))
+                    + ">") if m else entry.group(1)
+            spill = 0
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores:
+            spill = int(stores.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out.append(f"{name}: {regs.group(1)} registers"
+                       + (f", {spill} bytes spill stores" if spill else ""))
+    return out
 
 
 @functools.lru_cache(maxsize=1)
@@ -110,8 +148,8 @@ def build_library(sources: list[Path], build_dir: Path) -> KernelLibrary:
         t0 = time.perf_counter()
         try:
             procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
                 for src, obj in zip(sources, objs)]
             logs = [p.communicate()[0] for p in procs]
             log = "".join(logs)

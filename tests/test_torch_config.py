@@ -72,7 +72,7 @@ def test_geometry_from_env_matches_jax(env):
     t, j = geometry_from_env(env), jgeometry.geometry_from_env(env)
     assert {k: getattr(t, k) for k in SHARED} == \
         {k: getattr(j, k) for k in SHARED}
-    assert t.tile == KernelGeometry().tile  # no knob of the port's own
+    assert t.seg == KernelGeometry().seg  # no knob of the port's own
 
 
 def test_empty_env_gives_the_default_geometry():
@@ -103,9 +103,9 @@ def test_config_from_fields_carries_the_jax_switches():
     assert t.geom == KernelGeometry(own=128, mxu_rd2=True, mxu_sum=True)
 
 
-@pytest.mark.parametrize("bad", [dict(own=48), dict(own=512), dict(tile=0),
-                                 dict(tile=100), dict(tile=4096),
-                                 dict(tile=2048)])
+@pytest.mark.parametrize("bad", [dict(own=48), dict(own=512), dict(seg=0),
+                                 dict(seg=100), dict(seg=-512),
+                                 dict(own=16)])
 def test_geometry_validation_rejects_bad_knobs(bad):
     with pytest.raises(ValueError):
         tconfig.default_config(n=256, geom=KernelGeometry(**bad))

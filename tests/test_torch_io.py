@@ -76,7 +76,7 @@ def test_port_checkpoint_loads_in_the_jax_package(tmp_path):
 
 
 def test_port_roundtrip_keeps_its_geometry(tmp_path):
-    geom = KernelGeometry(own=128, tile=64)
+    geom = KernelGeometry(own=128, seg=256)
     cfg = default_config(n=300, geom=geom)
     state = spawn(cfg, "blowup", seed=1, device="cpu")
     path = str(tmp_path / "sub" / "ck.npz")
@@ -99,9 +99,11 @@ def test_port_roundtrip_keeps_the_tensor_core_switches(tmp_path):
 
 def test_geometry_without_switches_loads_with_them_off(tmp_path,
                                                         monkeypatch):
-    """A port file whose geometry predates the switches: (own, tile) only."""
+    """A port file whose geometry predates the switches: (own, tile) only.
+    It loads with the switches off and without `tile`, which no kernel
+    reads any more."""
     monkeypatch.setenv("PBF_MXU_RD2", "1")  # the file's geometry wins
-    cfg = default_config(n=64, geom=KernelGeometry(own=128, tile=64))
+    cfg = default_config(n=64, geom=KernelGeometry(own=128))
     path = str(tmp_path / "ck.npz")
     checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0, device="cpu"))
     with np.load(path) as z:
@@ -109,8 +111,34 @@ def test_geometry_without_switches_loads_with_them_off(tmp_path,
     data[checkpoint.GEOM_KEY] = np.bytes_(b'{"own": 128, "tile": 64}')
     np.savez(path, **data)
     cfg2, _ = checkpoint.load(path, device="cpu")
-    assert cfg2.geom == KernelGeometry(own=128, tile=64)
+    assert cfg2.geom == KernelGeometry(own=128)
     assert not (cfg2.geom.mxu_rd2 or cfg2.geom.mxu_sum or cfg2.geom.mxu_proj)
+
+
+@pytest.mark.parametrize("extra,loads", [
+    ('"tile": 128', True),  # the geometry of the port's files until `tile` went
+    ('"tile": 128, "lanes": 32', False),  # a field no geometry had
+])
+def test_old_port_geometry_with_tile_loads_without_it(tmp_path, extra,
+                                                      loads):
+    """A port file written while the geometry had `tile` loads with every
+    other field kept; a key that no port geometry ever had still fails."""
+    geom = KernelGeometry(own=128, seg=1024, mxu_rd2=True, mxu_sum=True)
+    cfg = default_config(n=64, geom=geom)
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, cfg, spawn(cfg, "standard", seed=0, device="cpu"))
+    with np.load(path) as z:
+        data = dict(z)
+    data[checkpoint.GEOM_KEY] = np.bytes_(
+        b'{"own": 128, ' + extra.encode() + b', "seg": 1024, '
+        b'"mxu_sum": true, "mxu_rd2": true, "mxu_proj": false}')
+    np.savez(path, **data)
+    if loads:
+        cfg2, _ = checkpoint.load(path, device="cpu")
+        assert cfg2 == cfg and cfg2.geom == geom
+    else:
+        with pytest.raises(TypeError):
+            checkpoint.load(path, device="cpu")
 
 
 def test_jax_checkpoint_with_switches_resumes_on_them(tmp_path):

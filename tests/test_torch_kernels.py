@@ -128,3 +128,51 @@ def test_wrappers_reject_bad_inputs_and_other_devices(case):
     with pytest.raises(ValueError):
         cuda_pbf.density_pass(cfg, p4.to("meta"), meta, N)
     assert cuda_pbf.LAUNCHES == before
+
+
+def test_header_edit_changes_the_build_hash(tmp_path, monkeypatch):
+    """The library's name hashes the csrc headers too, so an edit of a
+    shared header rebuilds every source that includes it."""
+    from pdb_sph_tpu_torch.utils import cuda_build
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    sources = [tmp_path / "a.cu"]
+    first = cuda_build._source_hash(sources)
+    assert cuda_build._source_hash(sources) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    edited = cuda_build._source_hash(sources)
+    assert edited != first
+    (tmp_path / "g.cuh").write_text("// new\n")
+    assert cuda_build._source_hash(sources) not in (first, edited)
+    cmd = cuda_build.compile_command("nvcc", sources[0], tmp_path / "a.o")
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+
+
+def _c_launchers() -> dict:
+    """extern "C" launch_* name -> ctypes argtypes, read from csrc."""
+    import ctypes
+    import re
+
+    from pdb_sph_tpu_torch.utils import cuda_build
+
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    found = {}
+    for src in cuda_build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (launch_\w+)\(([^)]*)\)', text):
+            found[name] = tuple(
+                kinds[re.sub(r"\s*\w+$", "", p.strip())]
+                for p in params.split(","))
+    return found
+
+
+def test_signatures_match_the_c_launchers():
+    """Every launcher's ctypes argtypes follow its C declaration, argument
+    for argument, so a pointer is never cut to an int."""
+    from pdb_sph_tpu_torch.utils import cuda_build
+
+    assert _c_launchers() == cuda_build.SIGNATURES

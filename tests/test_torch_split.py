@@ -1,6 +1,7 @@
-"""The FP32 kernels' work split on the CPU: the plan's work table, the
-segmented sums against the unsegmented ones and the JAX package's, the
-Stepper's scratch, and the geometry's segment length in checkpoints.
+"""The pair kernels' work split on the CPU: the plan's work table, the
+segmented sums of the FP32 and tensor-core forms against the unsegmented
+ones and the JAX package's, the Stepper's scratch, and the geometry's
+segment length in checkpoints.
 
 Each test runs at two segment lengths: SMALL, which cuts the blowup
 state's chunks into several segments, and WHOLE, one segment per chunk.
@@ -32,6 +33,14 @@ SEGS = [SMALL, WHOLE]
 LAM_ATOL, LAM_RTOL = 1e-8, 1e-4
 POS_ATOL = 1e-5
 RHO_RTOL = 1e-5
+# the tensor-core forms: pass -> form -> the geometry's switches
+TC_SWITCHES = {
+    "density": {"rd2": dict(mxu_rd2=True), "sum": dict(mxu_sum=True),
+                "rd2_sum": dict(mxu_rd2=True, mxu_sum=True)},
+    "project": {"proj": dict(mxu_proj=True), "sum": dict(mxu_sum=True),
+                "proj_sum": dict(mxu_proj=True, mxu_sum=True)},
+}
+TC_FORMS = [(p, f) for p, forms in TC_SWITCHES.items() for f in forms]
 
 
 def _cfg(seg, jcfg=None):
@@ -55,10 +64,10 @@ def blowup():
     sc, order = jhash.sort_by_cell(jcfg, cid_pad)
     ps = np.asarray(x)[np.asarray(order[:N])]
     plan_j = pallas_pbf.build_plan(jcfg, sc)
-    pT = pallas_pbf.make_pT(jcfg, jnp.asarray(ps), n_pad_j)
-    p4_j = pallas_pbf._p4_from_pT(jcfg, pT)
-    lam_j = pallas_pbf.density_pass(jcfg, pT, p4_j, plan_j, interpret=True)
-    pT = pT.at[:, 3].set(lam_j[:, 0])
+    pT0 = pallas_pbf.make_pT(jcfg, jnp.asarray(ps), n_pad_j)
+    p4_j = pallas_pbf._p4_from_pT(jcfg, pT0)
+    lam_j = pallas_pbf.density_pass(jcfg, pT0, p4_j, plan_j, interpret=True)
+    pT = pT0.at[:, 3].set(lam_j[:, 0])
     p4_j = pallas_pbf.splice_lambda(jcfg, p4_j, lam_j, n_pad_j)
     proj_j = pallas_pbf.project_pass(jcfg, pT, p4_j, plan_j, interpret=True)
 
@@ -69,7 +78,32 @@ def blowup():
     return dict(jcfg=jcfg, ps=ps, sorted_cid=sorted_cid,
                 lam=np.asarray(lam_j)[:N, 0],
                 moved=np.asarray(proj_j)[:N, :3],
-                rho=np.asarray(jdense.density_dense(jcfg, jnp.asarray(ps))))
+                rho=np.asarray(jdense.density_dense(jcfg, jnp.asarray(ps))),
+                jax_inputs=(plan_j, pT0, pT, lam_j, n_pad_j))
+
+
+@pytest.fixture(scope="module")
+def tc_jax(blowup):
+    """JAX's interpret-mode passes on the blowup state with each
+    tensor-core form's switches: the density forms' lambda, and the
+    project forms' positions from the FP32 lambda of `blowup`."""
+    jcfg = blowup["jcfg"]
+    plan_j, pT, pT_lam, lam_j, n_pad_j = blowup["jax_inputs"]
+    out = {}
+    for (kind, form) in TC_FORMS:
+        c = dataclasses.replace(jcfg, geom=dataclasses.replace(
+            jcfg.geom, **TC_SWITCHES[kind][form]))
+        if kind == "density":
+            lam = pallas_pbf.density_pass(c, pT, pallas_pbf._p4_from_pT(c, pT),
+                                          plan_j, interpret=True)
+            out[kind, form] = np.asarray(lam)[:N, 0]
+        else:
+            p4 = pallas_pbf.splice_lambda(
+                c, pallas_pbf._p4_from_pT(c, pT_lam), lam_j, n_pad_j)
+            moved = pallas_pbf.project_pass(c, pT_lam, p4, plan_j,
+                                            interpret=True)
+            out[kind, form] = np.asarray(moved)[:N, :3]
+    return out
 
 
 def _p4(case, n_pad, lam=None):
@@ -157,6 +191,41 @@ def test_split_sums_match_unsplit_and_jax(blowup, seg):
         assert torch.equal(lam[True], lam[False])
         assert torch.equal(rho[True], rho[False])
         assert torch.equal(moved[True], moved[False])
+
+
+@pytest.mark.parametrize("seg", SEGS)
+@pytest.mark.parametrize("kind,form", TC_FORMS)
+def test_tc_split_sums_match_unsplit_and_jax(blowup, tc_jax, kind, form,
+                                             seg):
+    """The tensor-core forms' split as their kernels take it (the row sums,
+    and delta-p's split product, per segment, added in segment order)
+    against the plain unsplit form and JAX's interpret-mode pass with the
+    same switches."""
+    base = _cfg(seg, blowup["jcfg"])
+    cfg = dataclasses.replace(base, geom=dataclasses.replace(
+        base.geom, **TC_SWITCHES[kind][form]))
+    plan = cuda_pbf.build_plan(cfg, blowup["sorted_cid"])
+    n_pad = blowup["sorted_cid"].shape[0]
+    if kind == "density":
+        p4 = _p4(blowup, n_pad)
+        got = {s: cuda_pbf.density_pass_ref(cfg, p4, plan, N, split=s)
+               for s in (True, False)}
+        kept, cols, tol = slice(0, 3), slice(3, 4), dict(rtol=LAM_RTOL,
+                                                         atol=LAM_ATOL)
+    else:
+        p4 = _p4(blowup, n_pad, blowup["lam"])
+        got = {s: cuda_pbf.project_pass_ref(cfg, p4, plan, N, split=s)
+               for s in (True, False)}
+        kept, cols, tol = slice(3, 4), slice(0, 3), dict(rtol=0,
+                                                         atol=POS_ATOL)
+    assert torch.equal(got[True][:N, kept], p4[:N, kept])
+    split = got[True][:N, cols].numpy().squeeze(-1 if kind == "density"
+                                                 else ())
+    for want in (got[False][:N, cols].numpy().squeeze(
+            -1 if kind == "density" else ()), tc_jax[kind, form]):
+        np.testing.assert_allclose(split, want, **tol)
+    if seg == WHOLE:  # one segment per chunk: the plain sum itself
+        assert torch.equal(got[True], got[False])
 
 
 @pytest.mark.parametrize("seg", SEGS)
