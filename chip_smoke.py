@@ -17,13 +17,25 @@ exits non-zero:
                (csrc/pbf_tc.cu) on the 80k dam break mid-collapse (step
                60) and settled (step 480, the heaviest own-chunks), each
                launched twice for bitwise-equal output, the scratch's
-               counters back at 0;
+               counters back at 0; then the same checks at own 32, 128
+               and 256 (step 60) with a 40-step rollout at each, and on
+               restricted plans, as rank 0 of two sees them (density
+               forms on own keys plus one ring, project forms on own
+               keys), the masked chunks' rows as JAX's rule writes them;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
                settle chunk: steps/s, stats, launch counts, stage breakdown;
                then the same with every tensor-core switch on, and two
                short rollouts with {mxu_sum} and {mxu_rd2, mxu_proj}, so
-               that each tensor-core instantiation runs on a path;
+               that each tensor-core instantiation runs on a path; then the
+               sharded paths (parallel/sharded.py): one rank (its fast
+               path) bitwise against the Stepper for 3 steps and rolled
+               240 more; two gloo ranks sharing the card (NCCL refuses two
+               ranks on one card), against the Stepper at step 3, by the
+               population discriminator at step 23 and against a
+               sum-order witness at step 243; and the cell backend at 80k
+               against the window backend, then on a table that overflows
+               (the runner exits 2);
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
                steps must come to rest (mean dense rho within 5 % of rho0,
                max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN),
@@ -35,17 +47,19 @@ exits non-zero:
                checkpoint; a resume of it; the 80k blowup; and a short 80k
                dam break with PBF_MXU_SUM/RD2/PROJ=1 in the environment.
 
-Every path (phases 5, 6 and 7's runs) is driven with the kernel launch
-counts set to 0 just before it and read just after.
+Every path (phases 5, 6 and 7's runs, the sharded rollouts) is driven
+with the kernel launch counts set to 0 just before it and read just after;
+the two ranks count in their own processes and report their counts.
 
 The line before the last is a JSON object with each kernel's launches
 (`launches_from` names the phases they were counted in: the FP32 solve
-kernels' from phase 5, the rho output's from phase 7's runs, the
-all-switches tensor-core kernels' from phases 5-7, the four one-switch
-instantiations' from phase 5's short rollouts), error and times at both
-steps; the last line is {"ok": true, "device": {...}}. Without a card, or
-without the package beside it, the script exits non-zero and prints no
-result.
+kernels' from phase 5 and the sharded rollouts, the rho output's from
+phase 7's runs, the all-switches tensor-core kernels' from phases 5-7, the
+four one-switch instantiations' from phase 5's short rollouts), error and
+times at both steps, on the restricted plans and at each other own; the
+`[done]` line before it gives the script's seconds; the last line is
+{"ok": true, "device": {...}}. Without a card, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ ROLLOUT_STEPS = 240
 # the one-switch geometries' rollouts: each runs its two instantiations
 SHORT_STEPS = 40
 REPS = 20
+PLAIN_REPS = 5  # the FP32 plain versions take ~0.2 s each
 # kernel vs plain: sums run in another order, with FMA contraction
 LAMBDA_RTOL, LAMBDA_ATOL = 1e-4, 1e-8
 POS_ATOL = 1e-5
@@ -160,6 +175,29 @@ ALL_SWITCHES = dict(mxu_sum=True, mxu_rd2=True, mxu_proj=True)
 ONE_SWITCH_GEOMS = (dict(mxu_sum=True), dict(mxu_rd2=True, mxu_proj=True))
 MXU_ENV = ("PBF_MXU_SUM", "PBF_MXU_RD2", "PBF_MXU_PROJ")
 CLI_TC_STEPS = 40
+# the own values beside the default 64 that the kernels are built for, each
+# checked at step 60 and rolled out C2_STEPS steps
+C2_OWNS = (32, 128, 256)
+C2_STEPS = 40
+C2_REPS = 5
+# the sharded paths: 3 steps against the single-device step, then a
+# rollout; two ranks share the card as gloo ranks (NCCL refuses two ranks
+# on one card), tolerances of __graft_entry__.py:89-104
+SHARD_STEPS, SHARD_ROLLOUT = 3, 240
+SHARD_RTOL, SHARD_ATOL = 1e-4, 2e-5
+# the population discriminator, at the horizon it was made for (the
+# dryrun's 12 + 8 steps): a missing ghost band moves most boundary-band
+# particles, the order of the sums a few percent of all
+POP_STEPS = 20
+POP_MAX_DEV, POP_TOL, POP_FRAC = 5e-2, 2e-5, 0.05
+# past it the order of the sums alone spreads every trajectory; at the end
+# of the rollout the two ranks may spread at most this much more than a
+# single-device run whose sums differ only in their order
+WITNESS_DEV, WITNESS_FRAC = 2.0, 1.5
+RANKS_TIMEOUT_S = 600
+# the cell backend against the window backend over 3 steps (ROADMAP
+# "Parity method"); its table sized from the spawn with this slack
+CELL_STEPS, CELL_SLACK = 3, 1.5
 
 
 def phase_device() -> str:
@@ -249,15 +287,47 @@ def _bound(name: str, plan, n: int, own: int,
             "operations" if ops_s >= bytes_s else "bytes", pairs)
 
 
-def _fp32_kernels(cfg, p4, plan, n: int, step: int,
-                  plain_reps: int) -> tuple[dict, torch.Tensor]:
+def _masked_rows(plan, n: int, own: int) -> torch.Tensor:
+    """The real rows of the own-chunks a plan gives no candidates: on a
+    restricted plan, the masked chunks' rows."""
+    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
+    return (lens == 0).repeat_interleave(own)[:n]
+
+
+def _check_masked(name: str, out: torch.Tensor, src: torch.Tensor, plan,
+                  n: int, cfg) -> int:
+    """Rows of masked chunks, written as JAX's rule has it: the density
+    forms lambda from zero sums (1 / relaxation_eps) with the positions
+    carried, rho 0, the project forms the row unchanged. Raises on a
+    wrong row; returns how many masked rows there are."""
+    rows = _masked_rows(plan, n, cfg.geom.own)
+    got, was = out[:n][rows], src[:n][rows]
+    if name.startswith("density_rho"):
+        want = torch.cat([was[:, :3], torch.zeros_like(was[:, 3:])], 1)
+    elif name.startswith("density"):
+        lam0 = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+            float(cfg.relaxation_eps), dtype=torch.float32)
+        want = torch.cat([was[:, :3],
+                          lam0.to(was.device).expand(was.shape[0], 1)], 1)
+    else:
+        want = was
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} wrote masked rows wrongly")
+    return int(rows.sum())
+
+
+def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
+                  plan_p=None, reps: int = REPS,
+                  tag: str = "") -> tuple[dict, torch.Tensor]:
     """K1 lambda, K2 and K1 rho against their plain versions on one state:
-    errors within the tolerances, two launches bitwise equal, times beside
-    their bounds. Returns ({counter: (max|err|, ms, plain ms or None,
-    bound ms, bound by)}, K1's output)."""
+    errors within the tolerances, two launches bitwise equal, the rows of
+    masked chunks as JAX writes them, times beside their bounds. K1 runs on
+    `plan`, K2 on `plan_p` (default `plan`). Returns ({counter: (max|err|,
+    ms, plain ms or None, bound ms, bound by)}, K1's output)."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import cuda_ms
 
+    plan_p = plan if plan_p is None else plan_p
     scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], p4.device)
     d_k = cuda_pbf.density_pass(cfg, p4, plan, n, scratch=scratch)
     d_r = cuda_pbf.density_pass_ref(cfg, p4, plan, n)
@@ -269,8 +339,8 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int,
         raise AssertionError("density kernel changed the positions it carries")
 
     # both project versions take the kernel's density output
-    p_k = cuda_pbf.project_pass(cfg, d_k, plan, n, scratch=scratch)
-    p_r = cuda_pbf.project_pass_ref(cfg, d_k, plan, n)
+    p_k = cuda_pbf.project_pass(cfg, d_k, plan_p, n, scratch=scratch)
+    p_r = cuda_pbf.project_pass_ref(cfg, d_k, plan_p, n)
     pos_err = (p_k[:n, :3] - p_r[:n, :3]).abs()
     pos_max = float(pos_err.max())
     move = float((p_r[:n, :3] - d_k[:n, :3]).abs().max())
@@ -280,15 +350,18 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int,
     r_r = cuda_pbf.density_rho_ref(cfg, p4, plan, n)
     rho_err = (r_k[:n, 3] - r_r[:n, 3]).abs()
     rho_bad = int((rho_err > RHO_RTOL * r_r[:n, 3].abs()).sum())
-    rho_rel = float((rho_err / r_r[:n, 3].abs()).max())
+    rho_rel = float((rho_err / r_r[:n, 3].abs().clamp_min(1e-30)).max())
     if not torch.equal(r_k[:n, :3], p4[:n, :3]):
         raise AssertionError("rho kernel changed the positions it carries")
+    masked = [_check_masked("density_lambda", d_k, p4, plan, n, cfg),
+              _check_masked("project", p_k, d_k, plan_p, n, cfg),
+              _check_masked("density_rho", r_k, p4, plan, n, cfg)]
 
     # a second launch of each gives the same bits: the combine is fixed
     again = {
         "density_lambda": (cuda_pbf.density_pass(cfg, p4, plan, n,
                                                  scratch=scratch), d_k),
-        "project": (cuda_pbf.project_pass(cfg, d_k, plan, n,
+        "project": (cuda_pbf.project_pass(cfg, d_k, plan_p, n,
                                           scratch=scratch), p_k),
         "density_rho": (cuda_pbf.density_rho(cfg, p4, plan, n,
                                              scratch=scratch), r_k),
@@ -303,8 +376,8 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int,
             lambda: cuda_pbf.density_pass(cfg, p4, plan, n, buf, scratch),
             lambda: cuda_pbf.density_pass_ref(cfg, p4, plan, n, buf)),
         "project": (
-            lambda: cuda_pbf.project_pass(cfg, d_k, plan, n, buf, scratch),
-            lambda: cuda_pbf.project_pass_ref(cfg, d_k, plan, n, buf)),
+            lambda: cuda_pbf.project_pass(cfg, d_k, plan_p, n, buf, scratch),
+            lambda: cuda_pbf.project_pass_ref(cfg, d_k, plan_p, n, buf)),
         "density_rho": (
             lambda: cuda_pbf.density_rho(cfg, p4, plan, n, buf, scratch),
             lambda: cuda_pbf.density_rho_ref(cfg, p4, plan, n, buf)),
@@ -314,11 +387,13 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int,
     mean_c, max_c = _candidates(plan)
     items = int(plan.seg_prefix[-1])
     near = _near_pairs(cfg, p4, plan, n)
+    near_p = near if plan_p is plan else _near_pairs(cfg, p4, plan_p, n)
     pairs = _bound("density_lambda", plan, n, cfg.geom.own, near)[2]
-    print(f"[kernels] n={n} after {step} steps; candidates/chunk "
+    print(f"[kernels]{tag} n={n} after {step} steps; candidates/chunk "
           f"mean {mean_c:.1f} max {max_c}; {pairs} pairs, {near} within h "
-          f"({100 * near / pairs:.2f} %); {items} work items of <= "
-          f"{int(plan.seg_len)} candidates; "
+          f"({100 * near / max(pairs, 1):.2f} %); {items} work items of <= "
+          f"{int(plan.seg_len)} candidates; masked rows (lambda, project, "
+          f"rho) {masked}, written as JAX's rule has it; "
           f"lambda max|err| {float(lam_err.max()):.3e} max rel "
           f"{lam_rel:.3e} (tol {LAMBDA_ATOL:g} + {LAMBDA_RTOL:g}|ref|, "
           f"{lam_bad} outside); positions max|err| {pos_max:.3e} (atol "
@@ -328,31 +403,34 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int,
           f"{'all' if not unequal else 'not ' + ', '.join(unequal)}")
     out = {}
     for name, (kernel, plain) in runs.items():
-        k_ms = cuda_ms(kernel, REPS)
+        k_ms = cuda_ms(kernel, reps)
         r_ms = cuda_ms(plain, plain_reps) if plain_reps else None
-        bound_ms, bound_by, _ = _bound(name, plan, n, cfg.geom.own, near)
+        kplan, knear = (plan_p, near_p) if name == "project" else (plan, near)
+        bound_ms, bound_by, kpairs = _bound(name, kplan, n, cfg.geom.own,
+                                            knear)
         plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
                      if r_ms is not None else "plain not timed here")
         every, within = (f[0] for f in PAIR_FLOPS[name])
-        print(f"[kernels] {KERNELS[name][0]} at step {step}: kernel "
-              f"{k_ms:.4f} ms (median of {REPS}, CUDA events), {plain_txt}; "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({pairs} pairs x "
-              f"{every} + {near} x {within} flops at "
+        print(f"[kernels]{tag} {KERNELS[name][0]} at step {step}: kernel "
+              f"{k_ms:.4f} ms (median of {reps}, CUDA events), {plain_txt}; "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({kpairs} pairs x "
+              f"{every} + {knear} x {within} flops at "
               f"{PEAK_FP32 / 1e12:g} TFLOP/s), "
               f"{100 * bound_ms / k_ms:.1f} % of bound")
         out[name] = (errs[name], k_ms, r_ms, bound_ms, bound_by)
     if lam_bad or not pos_max <= POS_ATOL or rho_bad:
         raise AssertionError(f"a kernel disagrees with its plain version at "
-                             f"step {step}")
+                             f"step {step}{tag}")
     if unequal:
-        raise AssertionError(f"two launches differ at step {step}: {unequal}")
+        raise AssertionError(f"two launches differ at step {step}{tag}: "
+                             f"{unequal}")
     return out, d_k
 
 
-def phase_kernels(device, n: int = N_MAIN) -> dict:
+def phase_kernels(device, n: int = N_MAIN) -> tuple[dict, object]:
     """Each kernel against its plain version on the dam break at steps 60
-    and 480. Returns {counter: (max|err|, ms, plain ms, bound ms, bound by,
-    ms at step 480, bound ms at step 480)}."""
+    and 480. Returns ({counter: (max|err|, ms, plain ms, bound ms, bound
+    by, ms at step 480, bound ms at step 480)}, the state at step 60)."""
     import pdb_sph_tpu_torch as pbf
 
     cfg = pbf.default_config(n=n)
@@ -363,8 +441,9 @@ def phase_kernels(device, n: int = N_MAIN) -> dict:
           f"shared memory (kProjMma)")
     state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
     state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
+    state60 = state
     p4, plan = _sorted_p4(cfg, state.x)
-    mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, REPS)
+    mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, PLAIN_REPS)
     mid.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS,
                            TC_PLAIN_REPS))
     state = pbf.make_rollout(cfg, "window", SETTLED_STEP - SETTLE_STEPS,
@@ -373,24 +452,30 @@ def phase_kernels(device, n: int = N_MAIN) -> dict:
     settled, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLED_STEP, 0)
     settled.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLED_STEP, 0))
     return {k: (max(v[0], settled[k][0]), *v[1:], settled[k][1],
-                settled[k][3]) for k, v in mid.items()}
+                settled[k][3]) for k, v in mid.items()}, state60
 
 
 def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
-                plain_reps: int) -> dict:
+                plain_reps: int, plan_p=None, reps: int = REPS,
+                tag: str = "") -> dict:
     """The six tensor-core instantiations against their plain versions on
     one state; the project forms take the FP32 kernel's lambda, as the FP32
-    project kernel does. Each launched twice for bitwise-equal output, the
-    scratch's counters back at 0 after. Returns {counter: (max|err|, ms,
-    plain ms or None, bound ms, bound by)}."""
+    project kernel does, and run on `plan_p` (default `plan`). Each
+    launched twice for bitwise-equal output, the scratch's counters back at
+    0 after, the rows of masked chunks as JAX writes them. Returns
+    {counter: (max|err|, ms, plain ms or None, bound ms, bound by)}."""
     import dataclasses
 
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import cuda_ms
 
+    plan_p = plan if plan_p is None else plan_p
     fp32 = {"density": cuda_pbf.density_pass_ref(cfg, p4, plan, n)[:n, 3],
-            "project": cuda_pbf.project_pass_ref(cfg, d_fp, plan, n)[:n, :3]}
-    near = _near_pairs(cfg, p4, plan, n)
+            "project": cuda_pbf.project_pass_ref(cfg, d_fp, plan_p,
+                                                 n)[:n, :3]}
+    near = {"density": _near_pairs(cfg, p4, plan, n)}
+    near["project"] = (near["density"] if plan_p is plan
+                       else _near_pairs(cfg, p4, plan_p, n))
     scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], p4.device)
     buf = torch.empty_like(p4)
     out, bad = {}, []
@@ -399,21 +484,23 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
             cfg, geom=dataclasses.replace(cfg.geom, **switches))
         density = name.startswith("density")
         src = p4 if density else d_fp
+        kplan = plan if density else plan_p
         wrapper = cuda_pbf.density_pass if density else cuda_pbf.project_pass
         plain = (cuda_pbf.density_pass_ref if density
                  else cuda_pbf.project_pass_ref)
         cuda_pbf.reset_launches()
-        got = wrapper(tcfg, src, plan, n, scratch=scratch)
-        again = wrapper(tcfg, src, plan, n, scratch=scratch)
+        got = wrapper(tcfg, src, kplan, n, scratch=scratch)
+        again = wrapper(tcfg, src, kplan, n, scratch=scratch)
         torch.cuda.synchronize()
         launches = cuda_pbf.LAUNCHES[name]
         equal = torch.equal(got, again)
         counters = int(scratch.counters.abs().sum())
-        want = plain(tcfg, src, plan, n)
+        want = plain(tcfg, src, kplan, n)
         cols = slice(3, 4) if density else slice(0, 3)
         kept = slice(0, 3) if density else slice(3, 4)
         if not torch.equal(got[:n, kept], src[:n, kept]):
             raise AssertionError(f"{name} changed the columns it carries")
+        masked = _check_masked(name, got, src, kplan, n, cfg)
         g, w = got[:n, cols], want[:n, cols]
         err = (g - w).abs()
         form = float((w.squeeze(-1) - fp32["density" if density
@@ -425,21 +512,23 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
         else:
             n_bad = int((err > TC_POS_ATOL).sum())
             tol = f"atol {TC_POS_ATOL:g}"
-        k_ms = cuda_ms(lambda: wrapper(tcfg, src, plan, n, buf, scratch),
-                       REPS)
-        r_ms = (cuda_ms(lambda: plain(tcfg, src, plan, n, buf), plain_reps)
+        k_ms = cuda_ms(lambda: wrapper(tcfg, src, kplan, n, buf, scratch),
+                       reps)
+        r_ms = (cuda_ms(lambda: plain(tcfg, src, kplan, n, buf), plain_reps)
                 if plain_reps else None)
-        bound_ms, bound_by, _ = _bound(name, plan, n, cfg.geom.own, near)
+        bound_ms, bound_by, _ = _bound(
+            name, kplan, n, cfg.geom.own,
+            near["density" if density else "project"])
         plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
                      if r_ms is not None else "plain not timed here")
-        print(f"[kernels] {KERNELS[name][0]} at step {step}: max|err| "
+        print(f"[kernels]{tag} {KERNELS[name][0]} at step {step}: max|err| "
               f"{float(err.max()):.3e} vs plain (tol {tol}, {n_bad} "
               f"outside); plain form vs plain FP32 form max|diff| "
-              f"{form:.3e}; kernel {k_ms:.4f} ms (median of {REPS}, CUDA "
+              f"{form:.3e}; kernel {k_ms:.4f} ms (median of {reps}, CUDA "
               f"events), {plain_txt}; bound {bound_ms:.4f} ms by "
               f"{bound_by}, {100 * bound_ms / k_ms:.1f} % of bound; "
               f"checked launches {launches}, two launches bitwise equal "
-              f"{equal}, counters after {counters}")
+              f"{equal}, counters after {counters}, masked rows {masked}")
         other = switches.get("mxu_rd2") or switches.get("mxu_proj")
         if n_bad or launches != 2 or not equal or counters \
                 or (other and TC_SEPARATION * float(err.max()) > form):
@@ -449,7 +538,7 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
         raise AssertionError(f"tensor-core kernels disagree with their plain "
                              f"versions, differ between two launches, left "
                              f"counters nonzero or did not launch at step "
-                             f"{step}: {bad}")
+                             f"{step}{tag}: {bad}")
     return out
 
 
@@ -738,6 +827,268 @@ def phase_cli(device, out_dir: str) -> tuple[int, dict]:
     return rho + l_tc["density_rho"], l_tc
 
 
+def phase_c2(device, state60, n: int = N_MAIN) -> dict:
+    """Every FP32 and tensor-core form at own 32, 128 and 256 against its
+    plain version on the step-60 state (two launches bitwise equal,
+    counters back at 0), and a C2_STEPS-step rollout at each whose stats
+    read [0, 0, 0]. Returns {own: {counter: ms}}."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    out = {}
+    for own in C2_OWNS:
+        cfg = pbf.default_config(n=n, geom=KernelGeometry(own=own))
+        tag = f" own {own}:"
+        p4, plan = _sorted_p4(cfg, state60.x)
+        fp, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, 0,
+                                reps=C2_REPS, tag=tag)
+        fp.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS, 0,
+                              reps=C2_REPS, tag=tag))
+        rollout = pbf.make_rollout(cfg, "window", C2_STEPS, with_stats=True,
+                                   device=device)
+        cuda_pbf.reset_launches()
+        st, stats = rollout(pbf.spawn(cfg, "dam_break", seed=0,
+                                      device=device))
+        launches = {k: v for k, v in cuda_pbf.LAUNCHES.items() if v}
+        finite = bool(torch.isfinite(st.x).all())
+        print(f"[c2] own {own}: {C2_STEPS}-step rollout stats "
+              f"{stats.tolist()}, finite {finite}, launches {launches}")
+        want = {"density_lambda": 3 * C2_STEPS, "project": 3 * C2_STEPS}
+        if stats.tolist() != [0, 0, 0] or not finite or launches != want:
+            raise AssertionError(f"own {own}: rollout stats or launches "
+                                 "are wrong")
+        out[own] = {k: v[1] for k, v in fp.items()}
+    return out
+
+
+def phase_restricted(device, state60, n: int = N_MAIN) -> dict:
+    """The nine forms on restricted plans, as rank 0 of D = 2 sees them:
+    the sorted step-60 state with the chunks outside its key band masked
+    (own keys plus one ring for the density forms, own keys for the
+    project forms). Returns {counter: (ms, bound ms, bound by)}."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.core.step import sort_cells
+    from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    cfg = pbf.default_config(n=n)
+    b = sharded.initial_bounds(cfg, 2, state=state60)
+    p4, plan = _sorted_p4(cfg, state60.x)
+    sorted_cid, _ = sort_cells(cfg, hashgrid.cell_ids(cfg, state60.x))
+    keep_d, keep_p = sharded.chunk_keep(cfg, sorted_cid, int(b[0]),
+                                        int(b[1]))
+    plan_d = cuda_pbf.restrict_plan(cfg, plan, keep_d)
+    plan_p = cuda_pbf.restrict_plan(cfg, plan, keep_p)
+    print(f"[restricted] rank 0 of 2, zx-keys [{b[0]}, {b[1]}): "
+          f"{int(keep_d.sum())} of {keep_d.numel()} chunks kept for the "
+          f"density forms, {int(keep_p.sum())} for the project forms")
+    tag = " restricted:"
+    fp, d_k = _fp32_kernels(cfg, p4, plan_d, n, SETTLE_STEPS, 0,
+                            plan_p=plan_p, tag=tag)
+    fp.update(_tc_kernels(cfg, p4, d_k, plan_d, n, SETTLE_STEPS, 0,
+                          plan_p=plan_p, tag=tag))
+    return {k: (v[1], v[3], v[4]) for k, v in fp.items()}
+
+
+def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
+    """The one-rank sharded path (D = 1, its fast path) at the flagship
+    size: SHARD_STEPS steps bit for bit the Stepper's, then a
+    SHARD_ROLLOUT-step rollout with stats [n, 0, 0, 0, 0]; returns its
+    launches."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    cfg = pbf.default_config(n=n)
+    st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+    pcfg = sharded.ParallelConfig.create(cfg, 1, state=st)
+    if pcfg.capacity != n:
+        raise AssertionError(f"one rank's capacity {pcfg.capacity} != {n}")
+    sst = sharded.distribute(cfg, pcfg, st, device=device)
+    step = sharded.make_sharded_step(cfg, pcfg, device=device)
+    stepper = pbf.make_step(cfg, "window", device=device)
+    ref = st
+    for _ in range(SHARD_STEPS):
+        sst, _, _ = step(sst)
+        ref = stepper(ref)
+        if not (torch.equal(sst.x, ref.x) and torch.equal(sst.v, ref.v)
+                and torch.equal(sst.ids, ref.ids)):
+            raise AssertionError("the one-rank path left the Stepper's bits")
+    rollout = sharded.make_sharded_rollout(cfg, pcfg, None, "window",
+                                           SHARD_ROLLOUT, device)
+    cuda_pbf.reset_launches()
+    fence(device)
+    t0 = time.perf_counter()
+    sst, stats, diag = rollout(sst)
+    fence(device)
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_pbf.LAUNCHES)
+    d = sharded.make_sharded_diagnostics(cfg, pcfg)(sst)[0].tolist()
+    print(f"[fastpath] D=1 n={n}: {SHARD_STEPS} steps bitwise equal to the "
+          f"Stepper; {SHARD_ROLLOUT} more steps in {secs:.4f} s = "
+          f"{SHARD_ROLLOUT / secs:.2f} steps/s on {card}; stats "
+          f"{stats.tolist()}, diag {diag.tolist()}; mean rho {d[0]:.1f} "
+          f"max err {d[1]:.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if stats.tolist() != [[n, 0, 0, 0, 0]] or diag[0, 2] != 0:
+        raise AssertionError("one-rank rollout stats are wrong")
+    want = 3 * SHARD_ROLLOUT
+    if launches["density_lambda"] != want or launches["project"] != want:
+        raise AssertionError(f"expected {want} solve launches: {launches}")
+    return launches
+
+
+def _population(x, ref) -> tuple[float, float]:
+    """(max |dx|, share of coordinates off by more than POP_TOL)."""
+    dev = (x - ref).abs()
+    return float(dev.max()), float((dev > POP_TOL).float().mean())
+
+
+def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
+    """D = 2 as two gloo ranks sharing the card, each with its kernels on
+    the card on restricted plans, the exchange staged through pinned host
+    memory. Against the single-device Stepper: SHARD_STEPS steps at the
+    parity tolerances; the population discriminator of __graft_entry__.py
+    at its horizon (step SHARD_STEPS + POP_STEPS); and at the end of the
+    SHARD_ROLLOUT-step rollout, where the order of the sums alone has
+    spread every trajectory, against the spread of a single-device witness
+    that differs from the Stepper only in that order (one work item a
+    chunk). Stats: no overflow, every particle, no NaN, in every chunk.
+    Returns the ranks' summed launches."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+    from pdb_sph_tpu_torch.parallel import launch
+
+    cfg = pbf.default_config(n=n)
+    wcfg = pbf.default_config(n=n, geom=KernelGeometry(seg=WITNESS_SEG))
+    st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+    chunks = [SHARD_STEPS, POP_STEPS, SHARD_ROLLOUT - POP_STEPS]
+    marks = [sum(chunks[:i + 1]) for i in range(len(chunks))]
+    stepper = pbf.make_step(cfg, "window", device=device)
+    witness = pbf.make_step(wcfg, "window", device=device)
+    ref, wit, refs = st, st, {}
+    for i in range(1, marks[-1] + 1):
+        ref, wit = stepper(ref), witness(wit)
+        if i in marks:
+            refs[i] = (_unsorted_x(ref).cpu(), _unsorted_x(wit).cpu())
+    t0 = time.perf_counter()
+    got, ranks = launch.rollout_ranks(
+        cfg, st, 2, chunks, "window", devices=[str(device)] * 2,
+        comm="gloo", timeout_s=RANKS_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    err3 = float((got[0][0].x - refs[marks[0]][0]).abs().max())
+    pop = _population(got[1][0].x, refs[marks[1]][0])
+    end = _population(got[2][0].x, refs[marks[2]][0])
+    floor = _population(refs[marks[2]][1], refs[marks[2]][0])
+    roll_s = got[1][3] + got[2][3]
+    launches = {k: sum(r[k] for r in ranks) for k in ranks[0]}
+    print(f"[ranks] D=2 gloo ranks sharing {card}, n={n}: step {marks[0]} "
+          f"max|dx| vs Stepper {err3:.3e} (rtol {SHARD_RTOL:g}, atol "
+          f"{SHARD_ATOL:g}); step {marks[1]} population vs Stepper: max dev "
+          f"{pop[0]:.3e} (< {POP_MAX_DEV:g}), {100 * pop[1]:.2f} % of "
+          f"coordinates off by > {POP_TOL:g} (< {100 * POP_FRAC:g} %); step "
+          f"{marks[2]}: max dev {end[0]:.3e}, {100 * end[1]:.2f} % off, the "
+          f"one-item-a-chunk witness vs Stepper {floor[0]:.3e}, "
+          f"{100 * floor[1]:.2f} % off (limits {WITNESS_DEV:g}x and "
+          f"{WITNESS_FRAC:g}x the witness's); {SHARD_ROLLOUT} steps in "
+          f"{roll_s:.4f} s = {SHARD_ROLLOUT / roll_s:.2f} steps/s (rank 0's "
+          f"clock, fenced); stats by chunk "
+          f"{[g[1].tolist() for g in got]}; launches summed over ranks "
+          f"{ {k: v for k, v in launches.items() if v} }; {secs:.1f} s "
+          "with the ranks' start")
+    torch.testing.assert_close(got[0][0].x, refs[marks[0]][0],
+                               rtol=SHARD_RTOL, atol=SHARD_ATOL)
+    for _, s, d, _ in got:
+        if s[:, 1:].sum() or int(s[:, 0].sum()) != n or d[:, 2].sum():
+            raise AssertionError(f"two-rank stats are wrong: {s.tolist()}, "
+                                 f"{d.tolist()}")
+    if not (pop[0] < POP_MAX_DEV and pop[1] < POP_FRAC):
+        raise AssertionError(f"two-rank population differs from the single "
+                             f"device at step {marks[1]}")
+    if not (end[0] <= WITNESS_DEV * floor[0]
+            and end[1] <= WITNESS_FRAC * floor[1]):
+        raise AssertionError(f"two-rank state at step {marks[2]} spreads "
+                             "further than the sum-order witness")
+    want = 2 * 3 * marks[-1]
+    if launches["density_lambda"] != want or launches["project"] != want:
+        raise AssertionError(f"expected {want} solve launches: {launches}")
+    return launches
+
+
+def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
+    """The cell backend at the flagship size: CELL_STEPS steps against the
+    window backend, with a table sized so nothing overflows; then a table
+    with a third of the rows, whose drops table_overflow counts and on
+    which the runner exits 2."""
+    import dataclasses
+
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch import cli
+    from pdb_sph_tpu_torch.io import checkpoint
+    from pdb_sph_tpu_torch.ops import hashgrid
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    cfg0 = pbf.default_config(n=n)
+    st = pbf.spawn(cfg0, "dam_break", seed=0, device=device)
+    _, counts = torch.unique(hashgrid.cell_ids(cfg0, st.x),
+                             return_counts=True)
+    occ = -(-int(CELL_SLACK * counts.numel()) // 8) * 8
+    cap = 16
+    while cap < CELL_SLACK * int(counts.max()):
+        cap *= 2
+    cfg = dataclasses.replace(cfg0, max_occupied_cells=occ,
+                              cell_capacity=cap, block=cap)
+    cell = pbf.make_step(cfg, "cell", device=device)
+    win = pbf.make_step(cfg, "window", device=device)
+    # each cell step starts from the window backend's state: a particle
+    # that one backend bounces off the floor and the other, 1e-7 away, does
+    # not keeps cd = 0.3 of its velocity in one run only (ops/collide.py),
+    # which a rolled comparison carries into later positions (~5e-5 by
+    # step 3 of the 80k dam break on an H100)
+    b, err, secs = st, 0.0, 0.0
+    for _ in range(CELL_STEPS):
+        fence(device)
+        t0 = time.perf_counter()
+        a, stats = cell.step(b, with_stats=True)
+        fence(device)
+        secs += time.perf_counter() - t0
+        if stats.tolist() != [0, 0, 0]:
+            raise AssertionError(f"cell step stats {stats.tolist()}")
+        b = win(b)
+        xa, xb = _unsorted_x(a), _unsorted_x(b)
+        err = max(err, float((xa - xb).abs().max()))
+        torch.testing.assert_close(xa, xb, rtol=ORACLE_RTOL,
+                                   atol=ORACLE_ATOL)
+    print(f"[cell] n={n}: {counts.numel()} occupied cells, at most "
+          f"{int(counts.max())} a cell; table max_occupied_cells {occ}, "
+          f"cell_capacity {cap}; {CELL_STEPS} steps, each from the window "
+          f"backend's state, in {secs:.3f} s, stats [0, 0, 0]; max|dx| vs "
+          f"window {err:.3e} (rtol {ORACLE_RTOL:g}, atol {ORACLE_ATOL:g})")
+
+    small = dataclasses.replace(cfg, max_occupied_cells=occ // 3)
+    _, stats = pbf.make_step(small, "cell", device=device).step(
+        st, with_stats=True)
+    os.makedirs(out_dir, exist_ok=True)
+    ck = os.path.join(out_dir, "cell_small.npz")
+    checkpoint.save(ck, small, st)
+    metrics = os.path.join(out_dir, "cell_small.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    rc = cli.main(["--resume", ck, "--steps", "1", "--chunk", "1",
+                   "--backend", "cell", "--device", "cuda",
+                   "--metrics-every", "0", "--metrics", metrics])
+    with open(metrics) as f:
+        last = json.loads(f.readlines()[-1])
+    print(f"[cell] max_occupied_cells {occ // 3}: table_overflow "
+          f"{int(stats[0])} in one step; the runner exits {rc}, its last "
+          f"record {last}")
+    if not int(stats[0]) > 0 or rc != 2 or not last.get("n_overflow"):
+        raise AssertionError("the small table did not overflow, or the "
+                             "runner did not exit 2 on it")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -746,6 +1097,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import pdb_sph_tpu_torch  # noqa: F401  (fails before any output if absent)
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -753,9 +1105,14 @@ def main() -> int:
     from pdb_sph_tpu_torch.geometry import KernelGeometry
 
     tc_geom = KernelGeometry(**ALL_SWITCHES)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
     card = phase_device()
     phase_build()
-    kern = phase_kernels(device)
+    kern, state60 = phase_kernels(device)
+    owns = phase_c2(device, state60)
+    restricted = phase_restricted(device, state60)
+    del state60
     phase_oracle(device)
     launches = phase_main(device, card)
     tc_main = phase_main(device, card, geom=tc_geom)
@@ -764,15 +1121,18 @@ def main() -> int:
         got = phase_main(device, card, KernelGeometry(**switches),
                          steps=SHORT_STEPS)
         short.update({k: v for k, v in got.items() if k in TC_FORMS and v})
+    fast = phase_fastpath(device, card)
+    ranks = phase_two_ranks(device, card)
+    phase_cell(device, os.path.join(build_dir, "chip_smoke_cell"))
     phase_settle(device)
     tc_settle = phase_settle(device, geom=tc_geom)
     phase_settle(device, geom=KernelGeometry(seg=WITNESS_SEG))
     phase_settle(device, geom=KernelGeometry(**ALL_SWITCHES, seg=WITNESS_SEG))
-    rho, tc_cli = phase_cli(
-        device, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "build", "chip_smoke_cli"))
+    rho, tc_cli = phase_cli(device, os.path.join(build_dir, "chip_smoke_cli"))
 
-    origin = {k: "phase 5" for k in SOLVE_KERNELS}
+    origin = {k: "phase 5 + sharded phases" for k in SOLVE_KERNELS}
+    for k in SOLVE_KERNELS:
+        launches[k] += fast[k] + ranks[k]
     launches["density_rho"], origin["density_rho"] = rho, "phase 7"
     for k in TC_SOLVE_KERNELS:
         launches[k] = tc_main[k] + tc_settle[k] + tc_cli[k]
@@ -789,11 +1149,16 @@ def main() -> int:
          "ms": kern[k][1], "plain_ms": kern[k][2], "bound_ms": kern[k][3],
          "bound_by": kern[k][4], "library_ms": None,
          f"ms_step{SETTLED_STEP}": kern[k][5],
-         f"bound_ms_step{SETTLED_STEP}": kern[k][6]}
+         f"bound_ms_step{SETTLED_STEP}": kern[k][6],
+         "restricted_ms": restricted[k][0],
+         "restricted_bound_ms": restricted[k][1],
+         "own_ms": {str(own): owns[own][k] for own in C2_OWNS}}
         for k in KERNELS
     ]
     if any(r["launches"] <= 0 for r in report):
         raise AssertionError(f"a kernel was not launched: {report}")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s from the start of "
+          "the script")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,33 +1,48 @@
-"""Headless simulation runner of the port: the single-device path of
-`pdb_sph_tpu/cli.py` (`:29-196`, `:427-554`) on PyTorch.
+"""Headless simulation runner of the port: `pdb_sph_tpu/cli.py` on
+PyTorch, its single-device path (`:29-196`, `:427-554`) and its mesh path
+(`_main_mesh`, `:199-424`).
 
 Same flags, JSONL records, frames, checkpoints and aborts as the JAX
 runner; a JAX command line (and a JAX checkpoint) carries across. What
-differs: `--backend` takes the port's names (`auto`/`window`/`dense`), and
-`--device` (default `cuda`) names where the state lives. A CUDA request
-without a card exits non-zero; it never moves to the CPU.
+differs: `--backend` takes the port's names (`auto`/`window`/`cell`/
+`dense`), and `--device` (default `cuda`) names where the state lives. A
+CUDA request without a card exits non-zero; it never moves to the CPU.
+
+`--devices N` runs the sharded decomposition (`parallel/sharded.py`): one
+rank in-process (its fast path), or N ranks, one process each
+(`parallel/launch.py`), NCCL with one card a rank or gloo on the CPU;
+rank 0 does all the I/O. `--fake-devices N`, JAX's mesh without chips, is
+`--device cpu --devices N`. A rank that fails or outlives
+`--rank-timeout` fails the run.
 
 Examples:
     python -m pdb_sph_tpu_torch.cli --scene dam_break --n 80000 --steps 600
     python -m pdb_sph_tpu_torch.cli --scene blowup --render-every 10 --out frames/
     python -m pdb_sph_tpu_torch.cli --resume ckpt.npz --steps 100
     python -m pdb_sph_tpu_torch.cli --device cpu --n 2048 --steps 20
+    python -m pdb_sph_tpu_torch.cli --fake-devices 2 --n 2048 --steps 20
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
+from . import interop
 from .config import SCENES, SimConfig, blowup_config, default_config
-from .core.step import BACKENDS, diagnostics_fn, make_rollout
+from .core.step import BACKENDS, diagnostics_fn, make_rollout, resolve_backend
+from .geometry import KernelGeometry
 from .io import checkpoint, frames
 from .models.scenes import spawn
+from .parallel import launch, sharded
 from .utils.logging import MetricsLogger
 from .utils.platform import resolve_device
 
@@ -52,27 +67,55 @@ def build_parser() -> argparse.ArgumentParser:
                         "density with wall = 2*(n/80k)^(1/3). 0 = reference "
                         "box")
     p.add_argument("--cell-capacity", type=int, default=0,
-                   help="the JAX cell table's slots per cell; inert here, "
-                        "kept so a JAX command line and checkpoint carry "
-                        "across (0 = scene default)")
+                   help="cell-table slots per cell of the cell backend "
+                        "(0 = scene default)")
     p.add_argument("--max-occ", type=int, default=0,
-                   help="the JAX cell table's rows; inert here, kept like "
-                        "--cell-capacity (0 = derived from n)")
+                   help="cell-table rows of the cell backend (0 = derived "
+                        "from n)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", choices=BACKENDS, default="auto",
                    help="window: the CUDA window kernels (plain torch on "
-                        "the CPU); dense: the all-pairs oracle; auto = "
-                        "window")
+                        "the CPU); cell: the cell table (plain torch; its "
+                        "drops are table_overflow); dense: the all-pairs "
+                        "oracle (no --devices); auto = window")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the state (cuda, cuda:N or cpu); "
                         "a CUDA request without a card fails")
+    p.add_argument("--devices", type=int, default=0,
+                   help="run the sharded decomposition (parallel/"
+                        "sharded.py) on N ranks: 1 in-process, N > 1 one "
+                        "process a rank (one card each with --device cuda, "
+                        "which needs N cards); 0 = the single-device path")
+    p.add_argument("--fake-devices", type=int, default=0,
+                   help="JAX's N-device CPU mesh: here --device cpu "
+                        "--devices N, so a JAX command line carries across")
+    p.add_argument("--rank-timeout", type=float, default=0.0,
+                   help="with --devices N > 1: fail the run when its ranks "
+                        "take longer than this many seconds; 0 = no limit")
     p.add_argument("--chunk", type=int, default=20,
                    help="steps per Rollout call; its stats are read back "
                         "once per chunk")
+    p.add_argument("--retier-at", type=int, default=0,
+                   help="with --devices: at absolute simulation step N "
+                        "(the first chunk boundary >= N), re-size the "
+                        "per-rank buffers from the current state "
+                        "(ParallelConfig.compact) and continue; ghost or "
+                        "plan/table overflow on that tier falls back to the "
+                        "spawn tier, any other overflow aborts rc=2. "
+                        "0 disables")
+    p.add_argument("--retier-maxlanes", type=int, default=0,
+                   help="JAX's lane budget at the re-tier; the port's "
+                        "window plan has no lane budget, so a nonzero "
+                        "value exits 2")
+    p.add_argument("--retier-geom", type=str, default="",
+                   help="with --retier-at: comma-separated KernelGeometry "
+                        "overrides of the port (own, seg, mxu_sum, "
+                        "mxu_rd2, mxu_proj) for the compact tier, e.g. "
+                        "'own=128,seg=1024'; the spawn tier keeps the run's "
+                        "geometry")
     p.add_argument("--allow-overflow", action="store_true",
-                   help="downgrade the neighbor-structure overflow abort "
-                        "(rc=2) to a warning; the port's structures have "
-                        "no capacity, so its counters read 0")
+                   help="downgrade the neighbor-structure and exchange "
+                        "overflow abort (rc=2) to a warning")
     p.add_argument("--metrics", type=str, default=None,
                    help="JSONL metrics path (default: stdout)")
     p.add_argument("--metrics-every", type=int, default=20,
@@ -173,6 +216,9 @@ def _stop_profiler(prof, directory: str) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.fake_devices:
+        args.device = "cpu"
+        args.devices = args.devices or args.fake_devices
     if args.gif and not args.render_every:
         print("error: --gif requires --render-every (no frames are rendered)",
               file=sys.stderr)
@@ -182,15 +228,24 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.devices:
+        return _main_mesh(args, device)
+    if args.retier_at:
+        print("warning: --retier-at applies only to the sharded path "
+              "(--devices N); ignored", file=sys.stderr)
 
-    if args.resume:
-        cfg, state = checkpoint.load(args.resume, device)
-    else:
-        cfg = config_from_args(args)
-        state = spawn(cfg, args.scene, args.seed, device=device)
+    cfg, state = _load(args, device)
 
     with MetricsLogger(args.metrics) as log:
         return _run(args, cfg, state, device, log)
+
+
+def _load(args, device):
+    """(config, state): the checkpoint's, or the scene's spawn."""
+    if args.resume:
+        return checkpoint.load(args.resume, device)
+    cfg = config_from_args(args)
+    return cfg, spawn(cfg, args.scene, args.seed, device=device)
 
 
 def _run(args, cfg: SimConfig, state, device: torch.device,
@@ -273,6 +328,245 @@ def _run(args, cfg: SimConfig, state, device: torch.device,
     log.log(event="done", steps=done, wall_seconds=wall,
             steps_per_sec=done / wall,
             particle_steps_per_sec=done * cfg.n / wall,
+            frames=writer.frames_written if writer else 0)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded path (`--devices N`)
+# ---------------------------------------------------------------------------
+
+def _parse_geom(spec: str) -> dict:
+    """--retier-geom 'key=int,...' -> KernelGeometry overrides; raises
+    ValueError on a key the port's geometry lacks or a value it refuses."""
+    fields = {f.name: f.default for f in dataclasses.fields(KernelGeometry)}
+    out = {}
+    for kv in filter(None, spec.split(",")):
+        k, _, v = kv.partition("=")
+        k = k.strip()
+        if k not in fields:
+            raise ValueError(f"{k!r} is not a field of the port's "
+                             f"KernelGeometry ({', '.join(fields)})")
+        try:
+            val = int(v)
+        except ValueError:
+            raise ValueError(f"entry {kv!r} is not KEY=INT") from None
+        out[k] = bool(val) if isinstance(fields[k], bool) else val
+    dataclasses.replace(KernelGeometry(), **out).validate()
+    return out
+
+
+def _main_mesh(args, device: torch.device) -> int:
+    """Check the sharded run's options, then run it: one rank in-process,
+    or one process a rank through parallel/launch.py. Returns rank 0's
+    exit code, or 1 if a rank failed."""
+    if args.backend == "dense":
+        print("error: --backend dense has no sharded decomposition; use "
+              "window or cell", file=sys.stderr)
+        return 2
+    if args.retier_maxlanes:
+        print("error: --retier-maxlanes: the port's window plan has exact "
+              "ranges and no lane budget to tighten (use --retier-geom)",
+              file=sys.stderr)
+        return 2
+    try:
+        geom_overrides = _parse_geom(args.retier_geom)
+    except ValueError as e:
+        print(f"error: bad --retier-geom: {e}", file=sys.stderr)
+        return 2
+    D = args.devices
+    if device.type == "cuda" and torch.cuda.device_count() < D:
+        print(f"error: --devices {D} on cuda needs {D} cards, "
+              f"torch sees {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    cfg, state = _load(args, "cpu")
+    chunk = _pick_chunk(args)
+    if args.retier_at:
+        start = int(state.step)
+        last_check = start + args.steps - (args.steps % chunk or chunk)
+        if args.retier_at > last_check:
+            print(f"warning: --retier-at {args.retier_at} is past the last "
+                  f"re-tier check (step {last_check}, chunk-boundary "
+                  "granularity); the re-tier will never fire",
+                  file=sys.stderr)
+    job = (args, resolve_backend(args.backend), cfg,
+           interop.state_to_numpy(state), chunk, geom_overrides)
+    if D == 1:
+        return _mesh_run(None, device, *job)
+    devices = ([f"cuda:{r}" for r in range(D)] if device.type == "cuda"
+               else ["cpu"] * D)
+    with tempfile.TemporaryDirectory(prefix="pbf_mesh_") as workdir:
+        try:
+            launch.run(_mesh_rank, D, devices,
+                       timeout_s=args.rank_timeout or None, workdir=workdir,
+                       args=job)
+        except launch.RankFailure as e:
+            print(f"FATAL: {e}", file=sys.stderr)
+            return 1
+        with open(os.path.join(workdir, "rc")) as f:
+            return int(f.read())
+
+
+def _mesh_rank(group, device, workdir, *job) -> None:
+    """A rank of the sharded runner; rank 0 leaves the exit code."""
+    rc = _mesh_run(group, device, *job)
+    if group.rank == 0:
+        with open(os.path.join(workdir, "rc"), "w") as f:
+            f.write(str(rc))
+
+
+def _mesh_run(group, device, args, backend: str, cfg: SimConfig, arrays,
+              chunk: int, geom_overrides: dict) -> int:
+    """The sharded runner on one rank (`_main_mesh` of the JAX runner):
+    every rank steps its slab and takes part in each collective; rank 0
+    writes the metrics, frames, GIF and checkpoint. Every decision reads
+    gathered stats, so all ranks take it together."""
+    lead = group is None or group.rank == 0
+    with MetricsLogger(args.metrics if lead else os.devnull) as log:
+        return _mesh_loop(group, device, args, backend, cfg, arrays, chunk,
+                          geom_overrides, lead, log)
+
+
+def _mesh_loop(group, device, args, backend: str, cfg: SimConfig, arrays,
+               chunk: int, geom_overrides: dict, lead: bool,
+               log: MetricsLogger) -> int:
+    D = args.devices
+    state = interop.state_from_numpy(*arrays, "cpu")
+    start_step = int(state.step)
+    retier_cfg = (dataclasses.replace(cfg, geom=dataclasses.replace(
+        cfg.geom, **geom_overrides)) if geom_overrides else cfg)
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, file=sys.stderr)
+
+    def programs(c, pc, steps):
+        return (sharded.make_sharded_rollout(c, pc, group, backend, steps,
+                                             device),
+                sharded.make_sharded_diagnostics(c, pc, group, backend))
+
+    pcfg = sharded.ParallelConfig.create(cfg, D, state=state)
+    cfg_active = cfg
+    rollout, density_diag = programs(cfg, pcfg, chunk)
+    sst = sharded.distribute(cfg, pcfg, state, group, device)
+    done = 0
+
+    def collected():
+        st = sharded.collect(sst, group)
+        return st._replace(step=torch.tensor(start_step + done,
+                                             dtype=torch.int32))
+
+    def rebuild(new_pcfg, st, new_cfg):
+        nonlocal pcfg, cfg_active, rollout, density_diag, sst
+        pcfg, cfg_active = new_pcfg, new_cfg
+        rollout, density_diag = programs(cfg_active, pcfg, chunk)
+        sst = sharded.distribute(cfg_active, pcfg, st, group, device)
+
+    def tier_record(event, old, **extra):
+        return dict(event=event, step=start_step + done, **extra,
+                    capacity=[old.capacity, pcfg.capacity],
+                    ghost_capacity=[old.ghost_capacity, pcfg.ghost_capacity],
+                    mig_capacity=[old.mig_capacity, pcfg.mig_capacity])
+
+    writer = _make_writer(args) if lead and args.render_every else None
+    if writer:
+        writer.submit(start_step, state.x)
+    log.log(event="start", scene=args.scene, n=cfg.n, steps=args.steps,
+            backend=backend, dt=cfg.dt, iters=cfg.solver_iters, devices=D,
+            device=str(device))
+    tier, retiered = "spawn", False
+    t_start = time.perf_counter()
+    try:
+        while done < args.steps:
+            if (args.retier_at and not retiered
+                    and start_step + done >= args.retier_at):
+                st, old = collected(), pcfg
+                rebuild(sharded.ParallelConfig.compact(cfg, D, state=st,
+                                                       prior=pcfg),
+                        st, retier_cfg)
+                retiered, tier = True, "compact"
+                log.log(**tier_record("retier", old,
+                                      geom=[dataclasses.asdict(cfg.geom),
+                                            dataclasses.asdict(
+                                                cfg_active.geom)]))
+            this_chunk = min(chunk, args.steps - done)
+            if this_chunk != chunk:  # final partial chunk: exact step count
+                rollout = sharded.make_sharded_rollout(
+                    cfg_active, pcfg, group, backend, this_chunk, device)
+            t0 = time.perf_counter()
+            sst, stats, sdiag = rollout(sst)
+            stats, sdiag = stats.cpu().numpy(), sdiag.cpu().numpy()
+            dt_wall = time.perf_counter() - t0
+            done += this_chunk
+            step_no = start_step + done
+
+            act = stats[:, 0]
+            overflows = stats[:, 1:].sum(axis=0).tolist()
+            record = {
+                "event": "progress", "step": step_no,
+                "steps_per_sec": this_chunk / dt_wall,
+                "particle_steps_per_sec": this_chunk * cfg.n / dt_wall,
+                "per_shard_active": act.tolist(),
+                "balance_min_over_mean": float(act.min()
+                                               / max(act.mean(), 1)),
+                "overflows": overflows,
+                "max_speed": float(sdiag[:, 0].max()),
+                "n_escaped": int(sdiag[:, 1].sum()),
+                "nan_detected": bool(sdiag[:, 2].sum() > 0),
+            }
+            if args.metrics_every and done % args.metrics_every == 0:
+                d = density_diag(sst).cpu().numpy()
+                w = np.maximum(act, 1).astype(np.float64)
+                record.update(
+                    mean_density=float((d[:, 0] * w).sum() / w.sum()),
+                    max_density_err=float(d[:, 1].max()))
+            log.log(**record)
+            if record["nan_detected"]:
+                say("FATAL: non-finite state detected; aborting")
+                return 2
+            if sum(overflows):
+                msg = (f"{tier}-tier overflow {overflows} (mig/merge/ghost/"
+                       f"plan-or-table) at step {step_no}")
+                if args.allow_overflow:
+                    say(f"warning: {msg}; continuing under --allow-overflow")
+                elif tier == "compact" and not overflows[0] + overflows[1]:
+                    # ghost and plan/table overflow only soften the step's
+                    # physics; migration and merge overflow drop particles
+                    say(f"warning: {msg}; falling back to the spawn tier")
+                    st, old = collected(), pcfg
+                    rebuild(sharded.ParallelConfig.create(
+                        cfg, D, state=st, rebalance=pcfg.rebalance,
+                        ghost_rows=pcfg.ghost_rows), st, cfg)
+                    tier = "spawn"
+                    log.log(**tier_record("tier_fallback", old,
+                                          overflows=overflows))
+                else:
+                    say(f"FATAL: {msg}; buffers truncated (migration and "
+                        "merge overflow drop particles) — raise capacities "
+                        "or pass --allow-overflow; aborting")
+                    return 2
+
+            if args.render_every and done % args.render_every == 0:
+                st = collected()
+                if writer:
+                    writer.submit(step_no, st.x)
+            if (args.checkpoint and args.checkpoint_every
+                    and done % args.checkpoint_every == 0):
+                st = collected()
+                if lead:
+                    checkpoint.save(args.checkpoint, cfg, st)
+    finally:
+        if writer:
+            writer.close()
+
+    wall = time.perf_counter() - t_start
+    if args.checkpoint:
+        st = collected()
+        if lead:
+            checkpoint.save(args.checkpoint, cfg, st)
+    log.log(event="done", steps=done, wall_seconds=wall,
+            steps_per_sec=done / wall,
+            particle_steps_per_sec=done * cfg.n / wall, devices=D,
             frames=writer.frames_written if writer else 0)
     return 0
 

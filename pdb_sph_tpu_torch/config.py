@@ -5,9 +5,10 @@ constant, so that the two packages compare field by field
 (`tests/test_torch_config.py`). Only `geom` differs: it holds the launch
 geometry of the CUDA kernels (`geometry.KernelGeometry`), built by
 `geometry_from_env` when no `geom` is given, as in the JAX package.
-`cell_capacity`, `max_occupied_cells` and `block` configure the JAX
-package's cell-table and Pallas backends; they are inert here and kept so
-that configs carry across (`interop.config_from_fields`).
+`cell_capacity` and `max_occupied_cells` size the cell table of the `cell`
+backend (`ops/hashgrid.py`), as in the JAX package; `block` configures the
+JAX package's Pallas pair block, is inert here and is kept so that configs
+carry across (`interop.config_from_fields`).
 
 Importing this module must not import `pdb_sph_tpu`, whose package
 `__init__` imports jax.
@@ -53,8 +54,8 @@ class SimConfig:
     strict_reference_collide: bool = False
 
     nb_cell_size: float = 0.0   # 0.0 -> h
-    cell_capacity: int = 128    # inert here (JAX cell-table backend)
-    max_occupied_cells: int = 4096  # inert here (JAX cell-table backend)
+    cell_capacity: int = 128    # cell-table slots per cell (`cell` backend)
+    max_occupied_cells: int = 4096  # cell-table rows (`cell` backend)
     block: int = 128            # inert here (JAX Pallas pair block)
 
     # PBF_* environment variables are construct-time defaults only

@@ -9,7 +9,11 @@ One step of the `window` backend (the counterpart of the JAX package's
     solver_iters x (density -> project)       ops.cuda_pbf.solve
     finalize with the 6-wall collision        ops.collide.finalize
 
-`dense` runs the all-pairs oracle instead. As in the reference, the state
+`cell` solves over the cell table instead (ops.hashgrid.build_grid,
+ops.cell_list.solve_cell_list, plain torch, the JAX package's `cell`
+backend): the table has a capacity, and the particles it drops keep their
+predicted position and are counted in the stats' table_overflow. `dense`
+runs the all-pairs oracle. As in the reference, the state
 comes back cell-sorted; `ids` carries each particle's spawn index.
 `diagnostics_fn` measures a state (density, speed, escapes, NaN) for the
 runner's metrics.
@@ -28,14 +32,14 @@ from typing import Callable
 import torch
 
 from ..config import SimConfig
-from ..ops import cuda_pbf, dense, hashgrid
+from ..ops import cell_list, cuda_pbf, dense, hashgrid
 from ..ops.collide import finalize
 from ..ops.integrate import predict
 from ..ops.smoothing import f32
 from ..state import SimState, StepDiagnostics
 from ..utils.platform import resolve_device
 
-BACKENDS = ("window", "dense", "auto")
+BACKENDS = ("window", "cell", "dense", "auto")
 
 Mark = Callable[[str], None]
 
@@ -70,8 +74,9 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
             with_stats: bool = False, mark: Mark | None = None,
             scratch: cuda_pbf.PairScratch | None = None):
     """One step. with_stats=True also returns the (3,) int32 vector
-    [table_overflow, plan_overflow, nonfinite] (both overflows are 0: no
-    structure of the port has a capacity). `mark(name)`, if given, is
+    [table_overflow, plan_overflow, nonfinite]: the cell table's drops on
+    the `cell` backend; the window plan has no capacity, so plan_overflow
+    is 0. `mark(name)`, if given, is
     called after each stage, for stage timing. `bufs` and `scratch` are
     the solve's (cuda_pbf.solve)."""
     backend = resolve_backend(backend)
@@ -89,22 +94,28 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     cid = hashgrid.cell_ids(cfg, p)
     mark("predict+cell_ids")
 
-    sorted_cid, order = sort_cells(cfg, cid)
+    if backend == "cell":
+        sorted_cid, order = hashgrid.sort_by_cell(cfg, cid)
+    else:
+        sorted_cid, order = sort_cells(cfg, cid)
     p_s, last_s, ids_s = p[order], state.x[order], state.ids[order]
     mark("sort+gather")
 
-    plan = cuda_pbf.build_plan(cfg, sorted_cid)
-    mark("plan")
-
-    p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch)
+    if backend == "cell":
+        grid = hashgrid.build_grid(cfg, sorted_cid, order)
+        overflow = torch.stack([grid.n_overflow, zero2[0]])
+        p_solved = cell_list.solve_cell_list(cfg, p_s, grid)
+        mark("solve")
+    else:
+        plan = cuda_pbf.build_plan(cfg, sorted_cid)
+        overflow = torch.stack([zero2[0], plan.n_overflow])
+        mark("plan")
+        p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch)
     x, v = finalize(cfg, p_solved, last_s)
     mark("finalize")
 
     out = SimState(x=x, v=v, ids=ids_s, step=state.step + 1)
-    if with_stats:
-        overflow = torch.stack([zero2[0], plan.n_overflow])
-        return out, _stats(overflow, x, v)
-    return out
+    return (out, _stats(overflow, x, v)) if with_stats else out
 
 
 def diagnostics_fn(cfg: SimConfig, state: SimState) -> StepDiagnostics:

@@ -26,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
+# own-chunk sizes the kernels are instantiated for (csrc/*.cu)
+OWNS = (32, 64, 128, 256)
 # the kernels use dynamic shared memory without raising the 48 KiB default
 # opt-in limit
 _MAX_SMEM_BYTES = 48 * 1024
@@ -97,7 +99,7 @@ class KernelGeometry:
                 + 2 * _PROJ_PLANE_BYTES)
 
     def validate(self) -> None:
-        if self.own not in (32, 64, 128, 256):
+        if self.own not in OWNS:
             raise ValueError(f"own ({self.own}) must be one of 32, 64, 128, "
                              "256 (whole warps, one thread per own row)")
         if self.seg <= 0 or self.seg % 32 != 0:

@@ -8,12 +8,13 @@ start from the very same particles and constants.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
 
 from .config import SimConfig
-from .geometry import KernelGeometry
+from .geometry import OWNS, KernelGeometry
 from .state import SimState
 
 # the JAX KernelGeometry's fields that the port's geometry shares
@@ -43,9 +44,12 @@ def config_from_fields(fields: dict) -> SimConfig:
     kernel geometry, as a dict), the fields that have a counterpart here
     carry over (GEOM_FIELDS: `own` and the tensor-core switches), so a JAX
     config or checkpoint with `PBF_MXU_*` set runs the tensor-core kernels
-    in the port too; every other geometry field is dropped. Without `geom`,
-    SimConfig's default factory builds the geometry. Unknown fields raise,
-    so a field added to one package only is caught.
+    in the port too; every other geometry field is dropped. An `own` the
+    port's kernels lack (JAX allows e.g. 96) becomes the port's default,
+    with a note on stderr; `KernelGeometry.validate` stays strict for the
+    port's own callers. Without `geom`, SimConfig's default factory builds
+    the geometry. Unknown fields raise, so a field added to one package
+    only is caught.
     """
     names = {f.name for f in dataclasses.fields(SimConfig)} - {"geom"}
     kw = {k: v for k, v in fields.items() if k != "geom"}
@@ -55,8 +59,14 @@ def config_from_fields(fields: dict) -> SimConfig:
                          f"{sorted(unknown)}")
     geom = fields.get("geom")
     if geom is not None:
-        kw["geom"] = KernelGeometry(
-            **{k: geom[k] for k in GEOM_FIELDS if k in geom})
+        shared = {k: geom[k] for k in GEOM_FIELDS if k in geom}
+        own = shared.get("own", KernelGeometry.own)
+        if own not in OWNS:
+            shared["own"] = KernelGeometry.own
+            print(f"note: own {own} has no kernel in the port (it has "
+                  f"{', '.join(map(str, OWNS))}); running own "
+                  f"{KernelGeometry.own}", file=sys.stderr)
+        kw["geom"] = KernelGeometry(**shared)
     cfg = SimConfig(**kw)
     cfg.validate()
     return cfg

@@ -196,6 +196,28 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
                       seg_prefix=seg_prefix, seg_len=seg_len)
 
 
+def restrict_plan(cfg: SimConfig, plan: WindowPlan,
+                  keep: torch.Tensor) -> WindowPlan:
+    """The plan with the nine ranges of every own-chunk c with keep[c]
+    False emptied, and its work table rebuilt on the device, with no host
+    read (`restrict_plan`, pdb_sph_tpu/ops/pallas_pbf.py:237-263).
+
+    The sharded solve runs each pass only on the own-chunks whose outputs
+    it reads. A masked chunk keeps its rows: its one empty work item still
+    writes them, as JAX's rule has it, so the density pass gives lambda
+    from zero sums (1 / relaxation_eps) and the project pass the own
+    position unchanged. The plain versions honour the same plan."""
+    if keep.shape != plan.ranges.shape[:1]:
+        raise ValueError(f"keep must be ({plan.ranges.shape[0]},), got "
+                         f"{tuple(keep.shape)}")
+    ranges = torch.where(keep[:, None, None], plan.ranges,
+                         torch.zeros_like(plan.ranges))
+    seg_len, seg_prefix = work_table(
+        cfg, (ranges[..., 1] - ranges[..., 0]).sum(dim=1))
+    return WindowPlan(ranges=ranges, n_overflow=plan.n_overflow,
+                      seg_prefix=seg_prefix, seg_len=seg_len)
+
+
 def work_table(cfg: SimConfig, cand: torch.Tensor):
     """(seg_len () int32, seg_prefix (chunks + 1,) int32) for chunks of
     `cand` candidates each, on the device, with no host read.
@@ -343,7 +365,8 @@ def _segments(plan: WindowPlan, split: bool, length: int) -> list[slice]:
     if not split:
         return [slice(None)]
     seg_len = int(plan.seg_len)
-    return [slice(a, a + seg_len) for a in range(0, length, seg_len)]
+    # a batch of chunks without candidates still sums one empty piece
+    return [slice(a, a + seg_len) for a in range(0, max(length, 1), seg_len)]
 
 
 def _store(out: torch.Tensor, row0: int, rows: torch.Tensor, n: int) -> None:

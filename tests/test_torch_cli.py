@@ -1,6 +1,9 @@
 """The port's runner (`python -m pdb_sph_tpu_torch.cli`) against the JAX
-runner, on the CPU (`--device cpu`, n = 256)."""
+runner, on the CPU (`--device cpu`, n = 256); its cell backend and its
+sharded path (`--devices 1` in-process, `--fake-devices 2`: two gloo
+ranks, one process each)."""
 
+import dataclasses
 import json
 import os
 
@@ -8,10 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+import pdb_sph_tpu as jpbf
 from pdb_sph_tpu import cli as jcli
-from pdb_sph_tpu_torch import cli, default_config, spawn
+from pdb_sph_tpu.geometry import KernelGeometry as JKernelGeometry
+from pdb_sph_tpu.io import checkpoint as jcheckpoint
+from pdb_sph_tpu_torch import cli, default_config, interop, spawn
 from pdb_sph_tpu_torch.core import step as tstep
 from pdb_sph_tpu_torch.io import checkpoint
+from pdb_sph_tpu_torch.parallel import sharded
 
 torch.set_num_threads(1)
 
@@ -166,3 +173,202 @@ def test_dense_backend_runs_and_matches_the_window_backend(tmp_path):
         out[backend] = st.x.numpy()[np.argsort(st.ids.numpy())]
     np.testing.assert_allclose(out["window"], out["dense"], rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the cell backend, the sharded path, JAX files with another own
+# ---------------------------------------------------------------------------
+
+def _small_table_ckpt(tmp_path, **kw):
+    """A checkpoint whose config has a small cell table (capacity 16), so
+    the cell backend's plain passes stay cheap on the CPU."""
+    ck = str(tmp_path / "small.npz")
+    cfg = default_config(n=256, cell_capacity=16, block=16, **kw)
+    checkpoint.save(ck, cfg, spawn(cfg, "dam_break", seed=4, device="cpu"))
+    return ck
+
+
+def test_cell_backend_runs_and_matches_the_window_backend(tmp_path):
+    ck = _small_table_ckpt(tmp_path)
+    out = {}
+    for backend in ("window", "cell"):
+        path = str(tmp_path / f"{backend}.npz")
+        metrics = str(tmp_path / backend)
+        assert cli.main(["--resume", ck, "--steps", "2", "--chunk", "2",
+                         "--backend", backend, "--device", "cpu",
+                         "--metrics", metrics, "--checkpoint", path]) == 0
+        prog = [r for r in _lines(metrics) if r["event"] == "progress"]
+        assert prog[-1]["n_overflow"] == 0
+        _, st = checkpoint.load(path, device="cpu")
+        out[backend] = st.x.numpy()[np.argsort(st.ids.numpy())]
+    np.testing.assert_allclose(out["cell"], out["window"], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_table_overflow_exits_rc2(tmp_path):
+    """A cell table of 32 rows drops particles: table_overflow, rc 2."""
+    ck = _small_table_ckpt(tmp_path, max_occupied_cells=32)
+    base = ["--resume", ck, "--steps", "2", "--chunk", "2", "--backend",
+            "cell", "--device", "cpu", "--metrics-every", "0"]
+    m1, m2 = str(tmp_path / "m1"), str(tmp_path / "m2")
+    assert cli.main(base + ["--metrics", m1]) == 2
+    last = _lines(m1)[-1]
+    assert last["event"] == "progress" and last["n_overflow"] > 0
+    assert last["plan_overflow"] == 0
+    assert cli.main(base + ["--metrics", m2, "--allow-overflow"]) == 0
+
+
+MESH = ["--scene", "dam_break", "--n", "512", "--chunk", "2",
+        "--metrics-every", "2", "--rank-timeout", "120"]
+
+
+def test_fake_devices_run_to_the_end_and_resume(tmp_path):
+    """--fake-devices 2 (two gloo ranks on the CPU) with metrics, frames, a
+    GIF and a checkpoint, then a resume of it; against the single-device
+    path from the same spawn."""
+    ck, m1, m2, ms = (str(tmp_path / f) for f in ("ck.npz", "m1", "m2",
+                                                  "ms"))
+    assert cli.main(MESH + ["--steps", "4", "--fake-devices", "2",
+                            "--render-every", "2", "--width", "64",
+                            "--height", "48", "--out", str(tmp_path / "fr"),
+                            "--gif", str(tmp_path / "a.gif"),
+                            "--checkpoint", ck, "--metrics", m1]) == 0
+    run = _lines(m1)
+    assert [r["event"] for r in run] == ["start", "progress", "progress",
+                                         "done"]
+    assert run[0]["devices"] == 2 and run[0]["device"] == "cpu"
+    prog = [r for r in run if r["event"] == "progress"]
+    for r in prog:
+        assert r["overflows"] == [0, 0, 0, 0] and not r["nan_detected"]
+        assert len(r["per_shard_active"]) == 2
+        assert sum(r["per_shard_active"]) == 512
+        assert 0.5 < r["balance_min_over_mean"] <= 1.0
+    assert sorted(os.listdir(tmp_path / "fr")) == [
+        "frame_000000.png", "frame_000002.png", "frame_000004.png"]
+    assert open(tmp_path / "a.gif", "rb").read(6) == b"GIF89a"
+    assert int(checkpoint.load(ck, device="cpu")[1].step) == 4
+
+    assert cli.main(["--resume", ck, "--steps", "2", "--chunk", "2",
+                     "--fake-devices", "2", "--rank-timeout", "120",
+                     "--metrics", m2, "--checkpoint", ck]) == 0
+    assert [r["step"] for r in _lines(m2)
+            if r["event"] == "progress"] == [6]
+    _, mesh = checkpoint.load(ck, device="cpu")
+    assert int(mesh.step) == 6
+    assert torch.equal(mesh.ids, torch.arange(512, dtype=torch.int32))
+
+    single = str(tmp_path / "single.npz")
+    assert cli.main(MESH + ["--steps", "6", "--device", "cpu",
+                            "--metrics", ms, "--checkpoint", single]) == 0
+    _, ref = checkpoint.load(single, device="cpu")
+    x_ref = ref.x.numpy()[np.argsort(ref.ids.numpy())]
+    np.testing.assert_allclose(mesh.x.numpy(), x_ref, rtol=1e-4, atol=1e-5)
+    dens = {r["step"]: r["mean_density"] for r in _lines(ms)
+            if "mean_density" in r}
+    for r in prog:
+        assert r["mean_density"] == pytest.approx(dens[r["step"]], rel=1e-4)
+
+
+def _mark_compact_tier(monkeypatch, column=None):
+    """Make the compact tier recognisable (mig_capacity 256, which one rank
+    never reads) and, when `column` is given, report one overflow of that
+    stats column on every step of it; with column None, on every step of
+    every tier."""
+    real_compact = sharded.ParallelConfig.compact
+    real_step = sharded._shard_step
+
+    def compact(*a, **k):
+        return dataclasses.replace(real_compact(*a, **k), mig_capacity=256)
+
+    def step(cfg, pcfg, *rest):
+        out = real_step(cfg, pcfg, *rest)
+        col = 3 if column is None else column
+        if column is None or pcfg.mig_capacity == 256:
+            stats = out[4].clone()
+            stats[col] += 1
+            out = (*out[:4], stats, out[5])
+        return out
+
+    monkeypatch.setattr(sharded.ParallelConfig, "compact",
+                        staticmethod(compact))
+    monkeypatch.setattr(sharded, "_shard_step", step)
+
+
+ONE_RANK = ["--devices", "1", "--device", "cpu", "--n", "256", "--steps",
+            "6", "--chunk", "2", "--metrics-every", "2"]
+
+
+def test_retier_then_fallback_on_ghost_overflow(tmp_path, monkeypatch):
+    """Ghost (or plan/table) overflow on the compact tier falls back to the
+    spawn tier and the run goes on. The overflow is reported by a wrapped
+    step: one rank cannot overflow its ghost buffer."""
+    _mark_compact_tier(monkeypatch, column=3)
+    m = str(tmp_path / "m")
+    assert cli.main(ONE_RANK + ["--retier-at", "2", "--retier-geom",
+                                "own=128", "--metrics", m]) == 0
+    recs = _lines(m)
+    assert [r["event"] for r in recs] == [
+        "start", "progress", "retier", "progress", "tier_fallback",
+        "progress", "done"]
+    retier = recs[2]
+    assert retier["step"] == 2 and retier["geom"][1]["own"] == 128
+    assert recs[3]["overflows"] == [0, 0, 2, 0]
+    assert recs[4]["overflows"] == [0, 0, 2, 0]
+    assert recs[5]["overflows"] == [0, 0, 0, 0]
+    assert "mean_density" in recs[1] and "per_shard_active" in recs[1]
+
+
+@pytest.mark.parametrize("column", [1, 2], ids=["migration", "merge"])
+def test_migration_or_merge_overflow_on_the_compact_tier_exits_rc2(
+        tmp_path, monkeypatch, column):
+    """Migration and merge overflow drop particles: on the compact tier too
+    they abort (JAX falls back and carries on), unless --allow-overflow."""
+    _mark_compact_tier(monkeypatch, column=column)
+    m = str(tmp_path / "m")
+    assert cli.main(ONE_RANK + ["--retier-at", "2", "--metrics", m]) == 2
+    last = _lines(m)[-1]
+    assert last["event"] == "progress" and last["step"] == 4
+    assert last["overflows"][column - 1] == 2
+    assert cli.main(ONE_RANK + ["--retier-at", "2", "--metrics",
+                                str(tmp_path / "m2"),
+                                "--allow-overflow"]) == 0
+
+
+def test_spawn_tier_overflow_exits_rc2(tmp_path, monkeypatch):
+    _mark_compact_tier(monkeypatch)
+    m = str(tmp_path / "m")
+    assert cli.main(ONE_RANK + ["--metrics", m]) == 2
+    assert _lines(m)[-1]["overflows"] == [0, 0, 2, 0]
+
+
+def test_sharded_refusals_exit_rc2(tmp_path):
+    m = str(tmp_path / "m")
+    for extra in (["--backend", "dense"], ["--retier-maxlanes", "49152"],
+                  ["--retier-geom", "cc_d=512"], ["--retier-geom", "own=96"],
+                  ["--retier-geom", "own=x"]):
+        assert cli.main(ONE_RANK + extra + ["--metrics", m]) == 2, extra
+    assert not os.path.exists(m)
+    # --device cuda (the default) with no card
+    assert cli.main(["--devices", "2", "--n", "256", "--steps", "2"]) == 2
+
+
+def test_a_jax_checkpoint_with_own_96_loads_and_runs(tmp_path, capfd):
+    """JAX allows own 96; the port has no kernel for it, so it runs its
+    default own, with a note on stderr, and keeps every other field."""
+    jcfg = jpbf.default_config(n=256, geom=JKernelGeometry(own=96),
+                               dt=0.008)
+    ck = str(tmp_path / "own96.npz")
+    jcheckpoint.save(ck, jcfg, jpbf.spawn(jcfg, "dam_break", seed=1))
+    cfg, state = checkpoint.load(ck, device="cpu")
+    assert "own 96" in capfd.readouterr().err
+    assert cfg.geom.own == 64 and cfg.dt == 0.008 and cfg.n == 256
+    state = tstep.make_step(cfg, "window", device="cpu")(state)
+    assert torch.isfinite(state.x).all()
+    metrics = str(tmp_path / "m")
+    assert cli.main(["--resume", ck, "--steps", "2", "--chunk", "2",
+                     "--device", "cpu", "--metrics", metrics]) == 0
+    assert "own 96" in capfd.readouterr().err
+    assert [r["step"] for r in _lines(metrics)
+            if r["event"] == "progress"] == [2]
+    with pytest.raises(ValueError):
+        interop.KernelGeometry(own=96).validate()

@@ -5,14 +5,18 @@ run on the card unless the caller asks for the CPU."""
 
 import inspect
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
 import torch
 
+from pdb_sph_tpu_torch import cli
 from pdb_sph_tpu_torch.core import step as tstep
 from pdb_sph_tpu_torch.io import checkpoint
 from pdb_sph_tpu_torch.models import scenes
+from pdb_sph_tpu_torch.parallel import launch, sharded
 from pdb_sph_tpu_torch.render import renderer
 from pdb_sph_tpu_torch.utils import platform
 
@@ -36,7 +40,19 @@ ENTRY_POINTS = {
     "make_rollout": tstep.make_rollout,
     "spawn": scenes.spawn,
     "checkpoint.load": checkpoint.load,
+    "make_sharded_step": sharded.make_sharded_step,
+    "make_sharded_rollout": sharded.make_sharded_rollout,
+    "ShardedStepper": sharded.ShardedStepper,
+    "distribute": sharded.distribute,
 }
+
+# the modules of the cell backend and the sharded path, and the runner
+NEW_MODULES = ("pdb_sph_tpu_torch.ops.hashgrid",
+               "pdb_sph_tpu_torch.ops.cell_list",
+               "pdb_sph_tpu_torch.parallel.comm",
+               "pdb_sph_tpu_torch.parallel.sharded",
+               "pdb_sph_tpu_torch.parallel.launch",
+               "pdb_sph_tpu_torch.cli")
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -66,3 +82,23 @@ def test_card_request_without_a_card_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             platform.resolve_device(device)
     assert platform.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_sharded_modules_import_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter, as a spawned rank starts."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in NEW_MODULES)
+            + "bad = [m for m in sys.modules if m == 'jax' "
+              "or m.startswith('jax.') or m == 'pdb_sph_tpu' "
+              "or m.startswith('pdb_sph_tpu.')]\n"
+              "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("fn", [launch._rollout_rank, cli._mesh_rank],
+                         ids=["rollout_rank", "mesh_rank"])
+def test_rank_workers_live_in_the_port(fn):
+    """A spawned rank imports the module of its function, never a test."""
+    assert fn.__module__.startswith("pdb_sph_tpu_torch.")
+    assert fn.__qualname__ == fn.__name__  # module level: importable
