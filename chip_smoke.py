@@ -32,8 +32,8 @@ exits non-zero:
                path) bitwise against the Stepper for 3 steps and rolled
                240 more; two gloo ranks sharing the card (NCCL refuses two
                ranks on one card), against the Stepper at step 3, by the
-               population discriminator at step 23 and against a
-               sum-order witness at step 243; and the cell backend at 80k
+               population discriminator at step 23 and by their density
+               diagnostics at steps 3, 23 and 243; and the cell backend at 80k
                against the window backend, then on a table that overflows
                (the runner exits 2);
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
@@ -54,7 +54,7 @@ the two ranks count in their own processes and report their counts.
 The line before the last is a JSON object with each kernel's launches
 (`launches_from` names the phases they were counted in: the FP32 solve
 kernels' from phase 5 and the sharded rollouts, the rho output's from
-phase 7's runs, the all-switches tensor-core kernels' from phases 5-7, the
+phase 7's runs and the two ranks' diagnostics, the all-switches tensor-core kernels' from phases 5-7, the
 four one-switch instantiations' from phase 5's short rollouts), error and
 times at both steps, on the restricted plans and at each other own; the
 `[done]` line before it gives the script's seconds; the last line is
@@ -190,10 +190,14 @@ SHARD_RTOL, SHARD_ATOL = 1e-4, 2e-5
 # particles, the order of the sums a few percent of all
 POP_STEPS = 20
 POP_MAX_DEV, POP_TOL, POP_FRAC = 5e-2, 2e-5, 0.05
-# past it the order of the sums alone spreads every trajectory; at the end
-# of the rollout the two ranks may spread at most this much more than a
-# single-device run whose sums differ only in their order
-WITNESS_DEV, WITNESS_FRAC = 2.0, 1.5
+# past it the order of the sums alone spreads every trajectory, so the
+# ranks are held by their density diagnostics against the single device's:
+# mean rho within this share. A particle within h of the slab boundary
+# whose ghosts went missing would count part of its neighbours only, and
+# the share of such particles would pull the mean down by a few percent.
+# The max |rho/rho0 - 1| is printed, not held: one splashed particle with
+# no neighbour reads ~1 in one trajectory and not in the other
+DENS_MEAN_RTOL = 0.01
 RANKS_TIMEOUT_S = 600
 # the cell backend against the window backend over 3 steps (ROADMAP
 # "Parity method"); its table sized from the spawn with this slack
@@ -951,28 +955,29 @@ def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
     the card on restricted plans, the exchange staged through pinned host
     memory. Against the single-device Stepper: SHARD_STEPS steps at the
     parity tolerances; the population discriminator of __graft_entry__.py
-    at its horizon (step SHARD_STEPS + POP_STEPS); and at the end of the
-    SHARD_ROLLOUT-step rollout, where the order of the sums alone has
-    spread every trajectory, against the spread of a single-device witness
-    that differs from the Stepper only in that order (one work item a
-    chunk). Stats: no overflow, every particle, no NaN, in every chunk.
-    Returns the ranks' summed launches."""
+    at its horizon (step SHARD_STEPS + POP_STEPS), the last check of
+    positions, since past it the order of the sums alone spreads every
+    trajectory; and after each chunk, up to the end of the SHARD_ROLLOUT-
+    step rollout, the ranks' density diagnostics (K1 rho over each rank's
+    particles and ghosts): their mean against the single device's
+    diagnostics_fn.
+    Stats: no overflow, every particle, no NaN, in every chunk. Returns
+    the ranks' summed launches."""
     import pdb_sph_tpu_torch as pbf
-    from pdb_sph_tpu_torch.geometry import KernelGeometry
     from pdb_sph_tpu_torch.parallel import launch
 
     cfg = pbf.default_config(n=n)
-    wcfg = pbf.default_config(n=n, geom=KernelGeometry(seg=WITNESS_SEG))
     st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
     chunks = [SHARD_STEPS, POP_STEPS, SHARD_ROLLOUT - POP_STEPS]
     marks = [sum(chunks[:i + 1]) for i in range(len(chunks))]
     stepper = pbf.make_step(cfg, "window", device=device)
-    witness = pbf.make_step(wcfg, "window", device=device)
-    ref, wit, refs = st, st, {}
+    ref, refs = st, {}
     for i in range(1, marks[-1] + 1):
-        ref, wit = stepper(ref), witness(wit)
+        ref = stepper(ref)
         if i in marks:
-            refs[i] = (_unsorted_x(ref).cpu(), _unsorted_x(wit).cpu())
+            d = pbf.diagnostics_fn(cfg, ref)
+            refs[i] = (_unsorted_x(ref).cpu(), float(d.mean_density),
+                       float(d.max_density_err))
     t0 = time.perf_counter()
     got, ranks = launch.rollout_ranks(
         cfg, st, 2, chunks, "window", devices=[str(device)] * 2,
@@ -980,19 +985,24 @@ def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
     secs = time.perf_counter() - t0
     err3 = float((got[0][0].x - refs[marks[0]][0]).abs().max())
     pop = _population(got[1][0].x, refs[marks[1]][0])
-    end = _population(got[2][0].x, refs[marks[2]][0])
-    floor = _population(refs[marks[2]][1], refs[marks[2]][0])
+    dens = []
+    for (_, s, _, _, dg), m in zip(got, marks):
+        w = s[:, 0].double()
+        dens.append((m, float((dg[:, 0].double() * w).sum() / w.sum()),
+                     float(dg[:, 1].max()), refs[m][1], refs[m][2]))
     roll_s = got[1][3] + got[2][3]
     launches = {k: sum(r[k] for r in ranks) for k in ranks[0]}
     print(f"[ranks] D=2 gloo ranks sharing {card}, n={n}: step {marks[0]} "
           f"max|dx| vs Stepper {err3:.3e} (rtol {SHARD_RTOL:g}, atol "
           f"{SHARD_ATOL:g}); step {marks[1]} population vs Stepper: max dev "
           f"{pop[0]:.3e} (< {POP_MAX_DEV:g}), {100 * pop[1]:.2f} % of "
-          f"coordinates off by > {POP_TOL:g} (< {100 * POP_FRAC:g} %); step "
-          f"{marks[2]}: max dev {end[0]:.3e}, {100 * end[1]:.2f} % off, the "
-          f"one-item-a-chunk witness vs Stepper {floor[0]:.3e}, "
-          f"{100 * floor[1]:.2f} % off (limits {WITNESS_DEV:g}x and "
-          f"{WITNESS_FRAC:g}x the witness's); {SHARD_ROLLOUT} steps in "
+          f"coordinates off by > {POP_TOL:g} (< {100 * POP_FRAC:g} %); "
+          "density diagnostics (mean rho, max |rho/rho0 - 1|) of the ranks "
+          "vs the Stepper's: "
+          + "; ".join(f"step {m} {a:.2f} vs {b:.2f}, {e:.4f} vs {f:.4f}"
+                      for m, a, e, b, f in dens)
+          + f" (the means within {100 * DENS_MEAN_RTOL:g} %); "
+          f"{SHARD_ROLLOUT} steps in "
           f"{roll_s:.4f} s = {SHARD_ROLLOUT / roll_s:.2f} steps/s (rank 0's "
           f"clock, fenced); stats by chunk "
           f"{[g[1].tolist() for g in got]}; launches summed over ranks "
@@ -1000,20 +1010,24 @@ def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
           "with the ranks' start")
     torch.testing.assert_close(got[0][0].x, refs[marks[0]][0],
                                rtol=SHARD_RTOL, atol=SHARD_ATOL)
-    for _, s, d, _ in got:
-        if s[:, 1:].sum() or int(s[:, 0].sum()) != n or d[:, 2].sum():
+    for _, s, d, _, dg in got:
+        if (s[:, 1:].sum() or int(s[:, 0].sum()) != n or d[:, 2].sum()
+                or dg[:, 4].sum()):
             raise AssertionError(f"two-rank stats are wrong: {s.tolist()}, "
-                                 f"{d.tolist()}")
+                                 f"{d.tolist()}, {dg.tolist()}")
     if not (pop[0] < POP_MAX_DEV and pop[1] < POP_FRAC):
         raise AssertionError(f"two-rank population differs from the single "
                              f"device at step {marks[1]}")
-    if not (end[0] <= WITNESS_DEV * floor[0]
-            and end[1] <= WITNESS_FRAC * floor[1]):
-        raise AssertionError(f"two-rank state at step {marks[2]} spreads "
-                             "further than the sum-order witness")
+    for m, a, _, b, _ in dens:
+        if not abs(a - b) <= DENS_MEAN_RTOL * b:
+            raise AssertionError(f"two-rank mean density at step {m} "
+                                 "differs from the single device's")
     want = 2 * 3 * marks[-1]
     if launches["density_lambda"] != want or launches["project"] != want:
         raise AssertionError(f"expected {want} solve launches: {launches}")
+    if launches["density_rho"] != 2 * len(chunks):
+        raise AssertionError(f"expected {2 * len(chunks)} diagnostic rho "
+                             f"launches: {launches}")
     return launches
 
 
@@ -1133,7 +1147,8 @@ def main() -> int:
     origin = {k: "phase 5 + sharded phases" for k in SOLVE_KERNELS}
     for k in SOLVE_KERNELS:
         launches[k] += fast[k] + ranks[k]
-    launches["density_rho"], origin["density_rho"] = rho, "phase 7"
+    launches["density_rho"] = rho + ranks["density_rho"]
+    origin["density_rho"] = "phase 7 + the two ranks' diagnostics"
     for k in TC_SOLVE_KERNELS:
         launches[k] = tc_main[k] + tc_settle[k] + tc_cli[k]
         origin[k] = "phases 5-7"

@@ -12,8 +12,8 @@ CUDA request without a card exits non-zero; it never moves to the CPU.
 rank in-process (its fast path), or N ranks, one process each
 (`parallel/launch.py`), NCCL with one card a rank or gloo on the CPU;
 rank 0 does all the I/O. `--fake-devices N`, JAX's mesh without chips, is
-`--device cpu --devices N`. A rank that fails or outlives
-`--rank-timeout` fails the run.
+`--device cpu --devices N`. A rank that fails, or stalls for
+`parallel.launch.STALL_S` seconds, fails the run.
 
 Examples:
     python -m pdb_sph_tpu_torch.cli --scene dam_break --n 80000 --steps 600
@@ -89,9 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fake-devices", type=int, default=0,
                    help="JAX's N-device CPU mesh: here --device cpu "
                         "--devices N, so a JAX command line carries across")
-    p.add_argument("--rank-timeout", type=float, default=0.0,
-                   help="with --devices N > 1: fail the run when its ranks "
-                        "take longer than this many seconds; 0 = no limit")
     p.add_argument("--chunk", type=int, default=20,
                    help="steps per Rollout call; its stats are read back "
                         "once per chunk")
@@ -397,9 +394,7 @@ def _main_mesh(args, device: torch.device) -> int:
                else ["cpu"] * D)
     with tempfile.TemporaryDirectory(prefix="pbf_mesh_") as workdir:
         try:
-            launch.run(_mesh_rank, D, devices,
-                       timeout_s=args.rank_timeout or None, workdir=workdir,
-                       args=job)
+            launch.run(_mesh_rank, D, devices, workdir=workdir, args=job)
         except launch.RankFailure as e:
             print(f"FATAL: {e}", file=sys.stderr)
             return 1

@@ -7,12 +7,16 @@ is a file store in the run's temporary directory (no TCP port, so
 concurrent runs never collide), on its own device, and calls
 `fn(group, device, workdir, *args)`; `workdir` is that directory, where
 ranks leave what the caller reads back. A rank that raises or exits
-non-zero fails the run (the others are terminated), and so does a run past
-its time limit: `run` raises, and leaves no process behind.
+non-zero fails the run (the others are terminated), and so does a stall:
+every collective times out after `STALL_S` seconds, and once one rank has
+finished, the others have `STALL_S` seconds to follow. A caller may add a
+deadline for the whole run. `run` then raises, and leaves no process
+behind.
 
 `rollout_ranks` is the library form of a sharded run: distribute a state
-over the ranks, roll it out in chunks, and return the collected state
-after each chunk with the chunk's stats and each rank's kernel launches.
+over the ranks (one card each unless the caller names other devices), roll
+it out in chunks, and return the collected state after each chunk with the
+chunk's stats and density diagnostics and each rank's kernel launches.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ from .comm import Group
 
 # seconds between checks of the ranks while waiting for them
 _POLL_S = 0.2
+# seconds a rank may go without progress: the limit of every collective,
+# and of the ranks still running once one has finished
+STALL_S = 600.0
 
 
 class RankFailure(RuntimeError):
@@ -79,9 +86,10 @@ def run(fn: Callable, n_ranks: int, devices: Sequence[str],
     backend `comm` (default: NCCL for cards, gloo for the CPU; gloo with
     card tensors stages them through pinned host memory). `fn` must be a
     module-level function of an importable module. Raises RankFailure when
-    a rank fails or the run outlives `timeout_s`. `workdir` (a fresh
-    temporary directory when None, removed afterwards) holds the
-    rendezvous file and whatever the ranks write."""
+    a rank fails, stalls (see `STALL_S`) or the run outlives `timeout_s`
+    (no deadline when None). `workdir` (a fresh temporary directory when
+    None, removed afterwards) holds the rendezvous file and whatever the
+    ranks write."""
     if len(devices) != n_ranks:
         raise ValueError(f"{n_ranks} ranks need {n_ranks} devices, got "
                          f"{list(devices)}")
@@ -90,12 +98,13 @@ def run(fn: Callable, n_ranks: int, devices: Sequence[str],
     own_dir = workdir is None
     workdir = workdir or tempfile.mkdtemp(prefix="pbf_ranks_")
     threads = max(1, torch.get_num_threads() // n_ranks)
-    limit = timeout_s if timeout_s else 1800.0
+    limit = min(STALL_S, timeout_s or STALL_S)
     ctx = mp.start_processes(
         _rank_entry, args=(n_ranks, workdir, comm, list(devices), threads,
                            limit, fn, args),
         nprocs=n_ranks, join=False, start_method="spawn")
     deadline = None if not timeout_s else time.monotonic() + timeout_s
+    first_done = None
     try:
         while True:
             try:
@@ -103,9 +112,16 @@ def run(fn: Callable, n_ranks: int, devices: Sequence[str],
                     return
             except ProcessException as e:
                 raise RankFailure(f"rank {e.error_index} failed: {e}") from e
-            if deadline is not None and time.monotonic() > deadline:
+            now = time.monotonic()
+            if deadline is not None and now > deadline:
                 raise RankFailure(f"the {n_ranks} ranks outlived their "
                                   f"time limit of {timeout_s} s")
+            if first_done is None and any(p.exitcode == 0
+                                          for p in ctx.processes):
+                first_done = now
+            if first_done is not None and now - first_done > STALL_S:
+                raise RankFailure(f"a rank was still running {STALL_S} s "
+                                  "after another had finished")
     finally:
         _stop(ctx)
         if own_dir:
@@ -117,11 +133,12 @@ def _rollout_rank(group: Group, device: torch.device, workdir: str,
                   backend: str, pcfg) -> None:
     from ..utils.timing import fence
     from .sharded import (ParallelConfig, collect, distribute,
-                          make_sharded_rollout)
+                          make_sharded_diagnostics, make_sharded_rollout)
 
     state = interop.state_from_numpy(*arrays, 0, "cpu")
     pcfg = pcfg or ParallelConfig.create(cfg, group.size, state=state)
     sst = distribute(cfg, pcfg, state, group, device)
+    density_diag = make_sharded_diagnostics(cfg, pcfg, group, backend)
     cuda_pbf.reset_launches()
     out = {}
     for i, steps in enumerate(chunks):
@@ -134,7 +151,8 @@ def _rollout_rank(group: Group, device: torch.device, workdir: str,
         secs = torch.tensor(time.perf_counter() - t0, dtype=torch.float64)
         st = collect(sst, group)
         out.update({f"x{i}": st.x, f"v{i}": st.v, f"ids{i}": st.ids,
-                    f"stats{i}": stats, f"diag{i}": diag, f"secs{i}": secs})
+                    f"stats{i}": stats, f"diag{i}": diag,
+                    f"density{i}": density_diag(sst), f"secs{i}": secs})
     with open(os.path.join(workdir, f"launches{group.rank}.json"), "w") as f:
         json.dump(cuda_pbf.LAUNCHES, f)
     if group.rank == 0:
@@ -147,13 +165,22 @@ def rollout_ranks(cfg: SimConfig, state: SimState, n_ranks: int,
                   devices: Sequence[str] | None = None,
                   comm: str | None = None, pcfg=None,
                   timeout_s: float | None = None):
-    """Roll `state` out on `n_ranks` ranks (default: one CPU process each)
-    in chunks of `chunks[i]` steps, from `ParallelConfig.create(cfg,
-    n_ranks, state=state)` unless `pcfg` is given. Returns ([(SimState in
-    id order on the CPU, stats (D, 5), diag (D, 3), rank 0's seconds for
-    the chunk, fenced) after each chunk], [each rank's kernel launch
-    counts])."""
-    devices = list(devices or ["cpu"] * n_ranks)
+    """Roll `state` out on `n_ranks` ranks, rank r on `devices[r]`
+    (default: card r, which needs `n_ranks` cards; `["cpu"] * n_ranks` for
+    CPU ranks), in chunks of `chunks[i]` steps, from
+    `ParallelConfig.create(cfg, n_ranks, state=state)` unless `pcfg` is
+    given. Returns ([(SimState in id order on the CPU, stats (D, 5), diag
+    (D, 3), rank 0's seconds for the chunk, fenced, and the sharded density
+    diagnostics (D, 5) after it) after each chunk], [each rank's kernel
+    launch counts, the diagnostics' included])."""
+    if devices is None:
+        if torch.cuda.device_count() < n_ranks:
+            raise RuntimeError(
+                f"{n_ranks} ranks need {n_ranks} cards, torch sees "
+                f"{torch.cuda.device_count()}; pass devices=['cpu'] * "
+                f"{n_ranks} to run them on the CPU")
+        devices = [f"cuda:{r}" for r in range(n_ranks)]
+    devices = list(devices)
     arrays = tuple(t.detach().cpu().numpy() for t in state[:3])
     with tempfile.TemporaryDirectory(prefix="pbf_ranks_") as workdir:
         run(_rollout_rank, n_ranks, devices, comm, timeout_s, workdir,
@@ -170,5 +197,6 @@ def rollout_ranks(cfg: SimConfig, state: SimState, n_ranks: int,
                                       res[f"ids{i}"], 0, "cpu")
         out.append((st, torch.from_numpy(res[f"stats{i}"]),
                     torch.from_numpy(res[f"diag{i}"]),
-                    float(res[f"secs{i}"])))
+                    float(res[f"secs{i}"]),
+                    torch.from_numpy(res[f"density{i}"])))
     return out, launches

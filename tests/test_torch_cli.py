@@ -219,7 +219,7 @@ def test_table_overflow_exits_rc2(tmp_path):
 
 
 MESH = ["--scene", "dam_break", "--n", "512", "--chunk", "2",
-        "--metrics-every", "2", "--rank-timeout", "120"]
+        "--metrics-every", "2"]
 
 
 def test_fake_devices_run_to_the_end_and_resume(tmp_path):
@@ -249,7 +249,7 @@ def test_fake_devices_run_to_the_end_and_resume(tmp_path):
     assert int(checkpoint.load(ck, device="cpu")[1].step) == 4
 
     assert cli.main(["--resume", ck, "--steps", "2", "--chunk", "2",
-                     "--fake-devices", "2", "--rank-timeout", "120",
+                     "--fake-devices", "2",
                      "--metrics", m2, "--checkpoint", ck]) == 0
     assert [r["step"] for r in _lines(m2)
             if r["event"] == "progress"] == [6]

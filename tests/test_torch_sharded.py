@@ -37,6 +37,9 @@ X_RTOL, X_ATOL = 1e-4, 1e-5
 V_RTOL, V_ATOL = 1e-3, 2e-3
 STEPS = 3
 RANK_TIMEOUT_S = 120.0
+# the sharded density diagnostics against the single device's: rho sums
+# the same pairs in another order (ghosts included), in float32
+DENS_RTOL, DENS_ERR_ATOL = 1e-4, 1e-4
 
 
 def _jax_pair(n, scene="dam_break", seed=0, **kw):
@@ -328,7 +331,7 @@ def _single(cfg, st, backend, steps=STEPS):
         st, stats = stepper.step(st, with_stats=True)
         assert stats.tolist() == [0, 0, 0]
     inv = torch.argsort(st.ids.long())
-    return st.x[inv], st.v[inv]
+    return st.x[inv], st.v[inv], tstep.diagnostics_fn(cfg, st)
 
 
 def test_one_rank_fast_path_is_the_stepper_bit_for_bit():
@@ -362,18 +365,27 @@ def references():
 @pytest.mark.parametrize("D", [2, 4])
 def test_gloo_ranks_match_the_single_device_step(references, D, backend):
     cfg, st, ref = references
-    (got, stats, diag, _), = launch.rollout_ranks(
-        cfg, st, D, [STEPS], backend=backend, timeout_s=RANK_TIMEOUT_S)[0]
+    (got, stats, diag, _, dens), = launch.rollout_ranks(
+        cfg, st, D, [STEPS], backend=backend, devices=["cpu"] * D,
+        timeout_s=RANK_TIMEOUT_S)[0]
     assert stats.shape == (D, 5) and diag.shape == (D, 3)
     assert stats[:, 1:].sum() == 0, stats.tolist()
     assert stats[:, 0].sum() == cfg.n and (stats[:, 0] > 0).all()
     assert diag[:, 2].sum() == 0
     assert torch.equal(got.ids, torch.arange(cfg.n, dtype=torch.int32))
-    want_x, want_v = ref[backend]
+    want_x, want_v, want_d = ref[backend]
     np.testing.assert_allclose(got.x.numpy(), want_x.numpy(), rtol=X_RTOL,
                                atol=X_ATOL)
     np.testing.assert_allclose(got.v.numpy(), want_v.numpy(), rtol=V_RTOL,
                                atol=V_ATOL)
+    # the sharded density diagnostics, weighted by each rank's particles
+    # as the runner weighs them, against the single device's
+    w = stats[:, 0].double()
+    mean = float((dens[:, 0].double() * w).sum() / w.sum())
+    assert mean == pytest.approx(float(want_d.mean_density), rel=DENS_RTOL)
+    assert float(dens[:, 1].max()) == pytest.approx(
+        float(want_d.max_density_err), abs=DENS_ERR_ATOL)
+    assert dens[:, 4].sum() == 0
 
 
 def test_forced_migration_overflow_is_counted(references):
@@ -386,8 +398,8 @@ def test_forced_migration_overflow_is_counted(references):
     on0 = int((sharded._np_zxkey(cfg, st.x.numpy()) < b[1]).sum())
     v = st.v.clone()
     v[:, 2] = 200.0   # every particle moves a whole box up in one step
-    (got, stats, _, _), = launch.rollout_ranks(
-        cfg, st._replace(v=v), 2, [1], pcfg=pcfg,
+    (got, stats, _, _, _), = launch.rollout_ranks(
+        cfg, st._replace(v=v), 2, [1], pcfg=pcfg, devices=["cpu"] * 2,
         timeout_s=RANK_TIMEOUT_S)[0]
     assert on0 > 128
     assert int(stats[:, 1].sum()) == on0 - 128
@@ -409,5 +421,15 @@ def test_rank_failure_fails_the_run(references, case):
         run = dict(chunks=[100_000], timeout_s=1.0)
     with pytest.raises(launch.RankFailure,
                        match="failed" if case == "rank_raises" else "limit"):
-        launch.rollout_ranks(cfg, st, 2, **run)
+        launch.rollout_ranks(cfg, st, 2, devices=["cpu"] * 2, **run)
+    assert not multiprocessing.active_children()
+
+
+def test_ranks_default_to_one_card_each(references):
+    """Without `devices`, the ranks ask for a card each: with fewer cards
+    than ranks the call raises before it starts any process."""
+    cfg, st, _ = references
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks need {n} cards"):
+        launch.rollout_ranks(cfg, st, n, [1], timeout_s=RANK_TIMEOUT_S)
     assert not multiprocessing.active_children()
