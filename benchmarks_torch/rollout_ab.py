@@ -12,16 +12,20 @@ process builds its checkout's kernels into that checkout's `build/`. One
 run: the 80k dam break in the geometry `geometry_from_env` gives (the
 default one; `PBF_MXU_SUM=1 PBF_MXU_RD2=1 PBF_MXU_PROJ=1` in the
 environment runs both checkouts with every tensor-core switch on), a
-240-step settle chunk, then a
-timed 240-step rollout (host clock, fenced: steps/s), then the median of
-20 steps of the stage breakdown from CUDA events recorded between the
-stages (the `mark` hook of `Stepper.step`). Writes
-chiprun_out/rollout_ab.json.
+240-step settle chunk, then a timed 240-step `Rollout` call (host clock,
+fenced: steps/s; a CUDA graph where the checkout has one) and a timed
+240-step eager loop of `Stepper.step` with stats summed (what a Rollout
+was before its graph); then 40 steps of each under torch.profiler: the
+device's busy share of the span and its device ms a step (this tree's
+`utils/timing.py` reads both traces); then the median of 20 steps of the
+stage breakdown from CUDA events recorded between the stages (the `mark`
+hook of `Stepper.step`). Writes chiprun_out/rollout_ab.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -33,6 +37,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 N = 80_000
 STEPS = 240
+PROFILE_STEPS = 40
 REPS = 20
 
 
@@ -63,13 +68,22 @@ def _stages(stepper, state) -> dict:
     return {name: statistics.median(v) for name, v in stages.items()}
 
 
+def _tree_timing():
+    """This tree's utils/timing.py, whichever checkout's package runs."""
+    path = ROOT / "pdb_sph_tpu_torch" / "utils" / "timing.py"
+    spec = importlib.util.spec_from_file_location("_tree_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def run_one(root: Path) -> dict:
     """One rollout of the package found under `root`."""
+    timing = _tree_timing()
     sys.path.insert(0, str(root))
     import torch
 
     import pdb_sph_tpu_torch as pbf
-    from pdb_sph_tpu_torch.utils.timing import fence
 
     if Path(pbf.__file__).resolve().parents[1] != root.resolve():
         raise RuntimeError(f"imported {pbf.__file__}, not from {root}")
@@ -78,16 +92,43 @@ def run_one(root: Path) -> dict:
     rollout = pbf.make_rollout(cfg, "window", STEPS, with_stats=True,
                                device=device)
     state, _ = rollout(pbf.spawn(cfg, "dam_break", seed=0, device=device))
-    fence(device)
-    t0 = time.perf_counter()
-    state, stats = rollout(state)
-    fence(device)
-    secs = time.perf_counter() - t0
-    if stats.tolist() != [0, 0, 0] or not torch.isfinite(state.x).all():
-        raise AssertionError(f"rollout went wrong: stats {stats.tolist()}")
-    stages = _stages(rollout.stepper, state)
-    return {"steps_per_s": STEPS / secs, "seconds": secs, "stages_ms": stages,
-            "stages_sum_ms": sum(stages.values()), "geom": repr(cfg.geom)}
+    stepper = rollout.stepper
+
+    def eager(steps):
+        s = state
+        total = torch.zeros((3,), dtype=torch.int32, device=device)
+        for _ in range(steps):
+            s, stats = stepper.step(s, with_stats=True)
+            total += stats
+        return s, total
+
+    # a rollout of the profiled length (a parent's Rollout may have no
+    # `steps` argument); its first call captures where there is a graph
+    short = pbf.make_rollout(cfg, "window", PROFILE_STEPS, with_stats=True,
+                             device=device)
+    short(state)
+    out = {"geom": repr(cfg.geom)}
+    for mode, timed, profiled in (
+            ("rollout", lambda: rollout(state), lambda: short(state)),
+            ("eager", lambda: eager(STEPS), lambda: eager(PROFILE_STEPS))):
+        timing.fence(device)
+        t0 = time.perf_counter()
+        final, stats = timed()
+        timing.fence(device)
+        secs = time.perf_counter() - t0
+        if stats.tolist() != [0, 0, 0] or not torch.isfinite(final.x).all():
+            raise AssertionError(f"{mode} went wrong: stats {stats.tolist()}")
+        prof = timing.profile_kernels(
+            profiled, root / "build" / f"rollout_ab_{mode}.json")
+        out[mode] = {"steps_per_s": STEPS / secs, "seconds": secs,
+                     "busy_share": prof["busy_share"],
+                     "device_ms_per_step": (
+                         None if prof["kernel_ms"] is None
+                         else prof["kernel_ms"] / PROFILE_STEPS),
+                     "kernels_per_step": prof["kernels"] / PROFILE_STEPS}
+    stages = _stages(stepper, state)
+    out.update(stages_ms=stages, stages_sum_ms=sum(stages.values()))
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -121,15 +162,21 @@ def main(argv: list[str] | None = None) -> int:
                 raise RuntimeError(f"{tag} run failed ({res.returncode})")
             r = json.loads(res.stdout.strip().splitlines()[-1])
             runs[tag].append(r)
-            print(f"[rollout] {tag} ({r['geom']}): "
-                  f"{r['steps_per_s']:.2f} steps/s "
-                  f"({N * r['steps_per_s']:.1f} particle-steps/s); stages "
-                  "(median of 20 steps, CUDA events, ms): " + ", ".join(
+            modes = "; ".join(
+                f"{mode} {r[mode]['steps_per_s']:.2f} steps/s, device busy "
+                + ("not measured" if r[mode]["busy_share"] is None else
+                   f"{100 * r[mode]['busy_share']:.1f} %, "
+                   f"{r[mode]['device_ms_per_step']:.4f} device ms and "
+                   f"{r[mode]['kernels_per_step']:.1f} kernels a step")
+                for mode in ("rollout", "eager"))
+            print(f"[rollout] {tag} ({r['geom']}): {modes}; stages (median "
+                  "of 20 eager steps, CUDA events, ms): " + ", ".join(
                       f"{k} {v:.4f}" for k, v in r["stages_ms"].items())
                   + f"; sum {r['stages_sum_ms']:.4f}")
     for tag, rs in runs.items():
-        rate = statistics.median(r["steps_per_s"] for r in rs)
-        print(f"[rollout] {tag}: median {rate:.2f} steps/s")
+        for mode in ("rollout", "eager"):
+            rate = statistics.median(r[mode]["steps_per_s"] for r in rs)
+            print(f"[rollout] {tag} {mode}: median {rate:.2f} steps/s")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "n": N, "steps": STEPS, "runs": runs}, f,

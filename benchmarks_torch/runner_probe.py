@@ -6,13 +6,16 @@ Run from the repository root on a machine with one CUDA card and nvcc:
     python3 benchmarks_torch/runner_probe.py
 
 Drives `pdb_sph_tpu_torch.cli.main` in-process on the 80k dam break, 240
-steps in chunks of 20, no frames: after one warm-up run, `--rounds` rounds
-of four runs in the order no diagnostics, diagnostics every 20, every 20,
-none (`--metrics-every 0` / `20`), each reporting its `done` steps/s and
-the median of its chunk rates (chunks 2-12). Then one `--profile` run of
-40 steps with diagnostics every 20, whose trace gives the device's busy
-share of the profiled span (kernel intervals merged; the profiler is on)
-and each kernel's launches and device time.
+steps in chunks of 20, no frames (its rollout runs as a CUDA graph): after
+one warm-up run, `--rounds` rounds of four runs in the order no
+diagnostics, diagnostics every 20, every 20, none (`--metrics-every 0` /
+`20`), each reporting its `done` steps/s and the median of its chunk rates
+(chunks 2-12). Then one `--profile` run of 40 steps with diagnostics every
+20, and, on the state the 240-step settle chunk leaves, 40 steps of the
+eager `Stepper.step` loop and 40 of the graph `Rollout`, each profiled:
+the device's busy share of the profiled span (kernel intervals merged; the
+profiler is on), its kernels a step and their device ms a step, and each
+kernel's launches and device time.
 """
 
 from __future__ import annotations
@@ -47,30 +50,45 @@ def _run(tag: str, extra: list[str], steps: int = 240) -> tuple[float, float]:
         r["steps_per_sec"] for r in prog[1:])
 
 
-def _busy(trace_path: Path, steps: int) -> None:
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern)
-    busy, cur_s, cur_e = 0.0, iv[0][0], iv[0][1]
-    for s, e in iv[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = iv[-1][1] - iv[0][0]
-    print(f"[profile] {len(kern)} kernels ({len(kern) / steps:.1f} per "
-          f"step); device busy {busy / 1e3:.3f} ms of {span / 1e3:.3f} ms "
-          f"span = {100 * busy / span:.1f} % (idle "
-          f"{100 - 100 * busy / span:.1f} %)")
-    by: dict[str, tuple[int, float]] = {}
-    for e in kern:
-        n, d = by.get(e["name"], (0, 0.0))
-        by[e["name"]] = (n + 1, d + e["dur"])
-    for name, (n, d) in sorted(by.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"[profile]   {d / 1e3:9.3f} ms {n:5d} launches  {name[:110]}")
+def _report(tag: str, r: dict, steps: int) -> None:
+    if not r["kernels"]:
+        print(f"[profile] {tag}: the trace holds no kernels; busy share not "
+              "measured")
+        return
+    print(f"[profile] {tag}: {r['kernels']} kernels "
+          f"({r['kernels'] / steps:.1f} a step), "
+          f"{r['kernel_ms'] / steps:.4f} device ms a step; device busy "
+          f"{r['busy_ms']:.3f} ms of {r['span_ms']:.3f} ms span = "
+          f"{100 * r['busy_share']:.1f} % (idle "
+          f"{100 - 100 * r['busy_share']:.1f} %)")
+    for name, n, ms in r["by_name"][:8]:
+        print(f"[profile]   {ms:9.3f} ms {n:5d} launches  {name[:110]}")
+
+
+def _eager_vs_graph(steps: int = 40) -> None:
+    """The eager Stepper loop and the graph Rollout, `steps` each, profiled
+    from the settled state."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.utils.timing import profile_kernels
+
+    device = torch.device("cuda", 0)
+    cfg = pbf.default_config(n=80_000)
+    rollout = pbf.make_rollout(cfg, "window", 240, with_stats=True,
+                               device=device)
+    state, _ = rollout(pbf.spawn(cfg, "dam_break", seed=0, device=device))
+    stepper = rollout.stepper
+
+    def eager():
+        s = state
+        total = torch.zeros((3,), dtype=torch.int32, device=device)
+        for _ in range(steps):
+            s, stats = stepper.step(s, with_stats=True)
+            total += stats
+
+    for tag, fn in (("eager Stepper loop", eager),
+                    ("graph Rollout", lambda: rollout(state, steps))):
+        _report(f"{tag}, {steps} steps",
+                profile_kernels(fn, OUT / f"{tag.split()[0]}.json"), steps)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -99,9 +117,13 @@ def main(argv: list[str] | None = None) -> int:
               f"median chunk steps/s {[round(b, 2) for _, b in v]}; median "
               f"of done {statistics.median(a for a, _ in v):.2f}")
 
+    from pdb_sph_tpu_torch.utils.timing import kernel_busy
+
     prof = OUT / "prof"
     _run("prof", ["--metrics-every", "20", "--profile", str(prof)], steps=40)
-    _busy(prof / "trace.json", 40)
+    _report("runner, 40 steps, diagnostics every 20",
+            kernel_busy(prof / "trace.json"), 40)
+    _eager_vs_graph()
     return 0
 
 

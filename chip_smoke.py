@@ -24,14 +24,25 @@ exits non-zero:
                keys), the masked chunks' rows as JAX's rule writes them;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
-               settle chunk: steps/s, stats, launch counts, stage breakdown;
+               settle chunk (the Rollout replays its CUDA graph: the launch
+               counts show the replays ran the geometry's two kernels
+               solver_iters times a step and nothing else): steps/s, stats,
+               launch counts, stage breakdown of the eager step;
                then the same with every tensor-core switch on, and two
                short rollouts with {mxu_sum} and {mxu_rd2, mxu_proj}, so
                that each tensor-core instantiation runs on a path; then the
+               graph against the eager loop in both geometries ([graph]):
+               240 graph steps bitwise 240 eager Stepper.step calls from
+               one settled state, 20 eager steps and 20 graph steps under
+               torch.cuda.set_sync_debug_mode("error"), eager and graph
+               steps/s in turns (eager, graph, graph, eager), the capture's
+               time, and 40 steps of each profiled (device busy share,
+               device ms a step); then the
                sharded paths (parallel/sharded.py): one rank (its fast
-               path) bitwise against the Stepper for 3 steps and rolled
-               240 more; two gloo ranks sharing the card (NCCL refuses two
-               ranks on one card), against the Stepper at step 3, by the
+               path) bitwise against the Stepper for 3 steps, then its
+               graph rollout bitwise the eager ShardedStepper loop for 240
+               more, with both rates; two gloo ranks sharing the card (NCCL
+               refuses two ranks on one card), against the Stepper at step 3, by the
                population discriminator at step 23 and by their density
                diagnostics at steps 3, 23 and 243; and the cell backend at 80k
                against the window backend, then on a table that overflows
@@ -44,12 +55,17 @@ exits non-zero:
                sums differ from the geometry's only in their order);
   7. cli     — the runner (pdb_sph_tpu_torch.cli.main) in-process on the
                card: the 80k dam break with metrics, frames, a GIF and a
-               checkpoint; a resume of it; the 80k blowup; and a short 80k
-               dam break with PBF_MXU_SUM/RD2/PROJ=1 in the environment.
+               checkpoint; a resume of it that ends on a partial chunk; the
+               80k blowup; and a short 80k dam break with
+               PBF_MXU_SUM/RD2/PROJ=1 in the environment; each run captures
+               one graph and allocates one pair-kernel scratch, its
+               diagnostics included.
 
 Every path (phases 5, 6 and 7's runs, the sharded rollouts) is driven
 with the kernel launch counts set to 0 just before it and read just after;
-the two ranks count in their own processes and report their counts.
+the two ranks count in their own processes and report their counts. A
+graph's launches count once per replay; the eager warm-up step before its
+capture launches for real and counts too (WARMUP_STEPS).
 
 The line before the last is a JSON object with each kernel's launches
 (`launches_from` names the phases they were counted in: the FP32 solve
@@ -64,6 +80,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -79,6 +96,10 @@ SETTLE_STEPS = 60      # kernel-vs-plain inputs: mid-collapse state
 SETTLED_STEP = 480     # and the settled state, with the heaviest chunks
 N_ORACLE = 2048
 ROLLOUT_STEPS = 240
+# the eager step a graph rollout's first call runs before its capture
+WARMUP_STEPS = 1
+# [graph]: steps under the sync-debug mode, steps profiled in each mode
+SYNC_STEPS, PROFILE_STEPS = 20, 40
 # the one-switch geometries' rollouts: each runs its two instantiations
 SHORT_STEPS = 40
 REPS = 20
@@ -105,8 +126,9 @@ SETTLE_N, SETTLE_GATE_STEPS = 8192, 2000
 # the settle gate's witness geometry: segments longer than any chunk's
 # candidates, so one work item a chunk
 WITNESS_SEG = 1 << 20
-# the runner's runs: 80k dam break, its resume, the 80k blowup
-CLI_STEPS, CLI_RESUME_STEPS, CLI_EVERY, CLI_RENDER = 240, 40, 20, 120
+# the runner's runs: 80k dam break, its resume (chunks 20, 20 and a
+# partial 10), the 80k blowup
+CLI_STEPS, CLI_RESUME_STEPS, CLI_EVERY, CLI_RENDER = 240, 50, 20, 120
 # window vs dense over 3 steps (tests/test_pallas.py:45-55)
 ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-5
 
@@ -650,6 +672,115 @@ def phase_main(device, card: str, geom=None, n: int = N_MAIN,
     return launches
 
 
+def _eager_steps(stepper, state, steps: int):
+    """`steps` eager Stepper.step calls from `state`, stats summed: the
+    loop a Rollout ran before its graph."""
+    total = torch.zeros((3,), dtype=torch.int32, device=state.x.device)
+    for _ in range(steps):
+        state, stats = stepper.step(state, with_stats=True)
+        total += stats
+    return state, total
+
+
+def _profile_line(tag: str, r: dict, steps: int) -> str:
+    if not r["kernels"]:
+        return f"{tag}: the profiler saw no kernels (not measured)"
+    return (f"{tag}: device busy {100 * r['busy_share']:.1f} % of "
+            f"{r['span_ms']:.3f} ms, {r['kernel_ms'] / steps:.4f} device ms "
+            f"and {r['kernels'] / steps:.1f} kernels a step")
+
+
+def phase_graph(device, card: str, out_dir: str, geom=None,
+                n: int = N_MAIN) -> dict:
+    """The graph rollout against the eager Stepper loop in `geom` (None:
+    the default geometry), from one state settled ROLLOUT_STEPS steps:
+    ROLLOUT_STEPS steps of each bitwise equal (x, v, ids, step, stats),
+    the graph's launches exactly the geometry's two solve kernels
+    solver_iters times a step; SYNC_STEPS eager steps and SYNC_STEPS graph
+    steps under torch.cuda.set_sync_debug_mode("error"); steps/s of each
+    in turns (eager, graph, graph, eager); PROFILE_STEPS steps of each
+    under torch.profiler. Returns the rates and profiles."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+
+    cfg = pbf.default_config(n=n, **({} if geom is None else {"geom": geom}))
+    name = _geom_name(cfg.geom)
+    rollout = pbf.make_rollout(cfg, "window", ROLLOUT_STEPS, with_stats=True,
+                               device=device)
+    stepper = rollout.stepper
+    state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+    fence(device)
+    t0 = time.perf_counter()
+    state, _ = rollout(state, 1)
+    fence(device)
+    first_s = time.perf_counter() - t0
+    state, _ = rollout(state, ROLLOUT_STEPS - 1)
+
+    cuda_pbf.reset_launches()
+    g, g_stats = rollout(state)
+    fence(device)
+    launches = dict(cuda_pbf.LAUNCHES)
+    e, e_stats = _eager_steps(stepper, state, ROLLOUT_STEPS)
+    equal = {f: torch.equal(a, b) for f, a, b in zip(g._fields, g, e)}
+    equal["stats"] = torch.equal(g_stats, e_stats)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, _ = _eager_steps(stepper, state, SYNC_STEPS)
+        rollout(s, SYNC_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    runs = {"eager": lambda k: _eager_steps(stepper, state, k),
+            "graph": lambda k: rollout(state, k)}
+    rates: dict[str, list[float]] = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        fence(device)
+        t0 = time.perf_counter()
+        runs[mode](ROLLOUT_STEPS)
+        fence(device)
+        rates[mode].append(ROLLOUT_STEPS / (time.perf_counter() - t0))
+    tag = "tc" if geom is not None else "default"
+    prof = {mode: profile_kernels(lambda: run(PROFILE_STEPS), os.path.join(
+                out_dir, f"graph_{tag}_{mode}.json"))
+            for mode, run in runs.items()}
+
+    print(f"[graph] {name} n={n}: {ROLLOUT_STEPS} graph steps vs "
+          f"{ROLLOUT_STEPS} eager Stepper.step steps from step "
+          f"{int(state.step)}: bitwise equal {equal}; graph launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {SYNC_STEPS} eager "
+          f"and {SYNC_STEPS} graph steps under set_sync_debug_mode('error') "
+          f"without a sync; first call (warm-up step, capture, one replay) "
+          f"{first_s:.4f} s")
+    print(f"[graph] {name}: steps/s eager {rates['eager'][0]:.2f}, graph "
+          f"{rates['graph'][0]:.2f}, graph {rates['graph'][1]:.2f}, eager "
+          f"{rates['eager'][1]:.2f} (host clock, fenced, {ROLLOUT_STEPS} "
+          f"steps each) on {card}; "
+          + "; ".join(_profile_line(f"{m} {PROFILE_STEPS} steps", r,
+                                    PROFILE_STEPS) for m, r in prof.items()))
+    counts = {m: {k: c for k, c, _ in r["by_name"]} for m, r in prof.items()}
+    differ = {k[:48]: (counts["eager"].get(k, 0), counts["graph"].get(k, 0))
+              for k in set(counts["eager"]) | set(counts["graph"])
+              if counts["eager"].get(k, 0) != counts["graph"].get(k, 0)}
+    print(f"[graph] {name}: kernels whose counts differ between the "
+          f"profiled modes (eager, graph): {differ}")
+    if not all(equal.values()):
+        raise AssertionError(f"{name}: the graph left the eager loop's bits: "
+                             f"{equal}")
+    expect, idle = _solve_kernels(cfg.geom)
+    want = cfg.solver_iters * ROLLOUT_STEPS
+    if any(launches[k] != want for k in expect) \
+            or any(launches[k] for k in idle):
+        raise AssertionError(f"expected {want} launches of each of {expect} "
+                             f"and none of {idle}, got {launches}")
+    return {"rates": rates, "first_s": first_s,
+            "profile": {m: {k: v for k, v in r.items() if k != "by_name"}
+                        for m, r in prof.items()}}
+
+
 def _geom_name(geom) -> str:
     from pdb_sph_tpu_torch.geometry import KernelGeometry
 
@@ -689,7 +820,7 @@ def phase_settle(device, geom=None) -> dict:
         print(f"[settle] {name}: {line}")
     print(f"[settle] {name}: {SETTLE_GATE_STEPS / r['seconds']:.2f} steps/s; "
           f"launches {launches}")
-    want = 3 * SETTLE_GATE_STEPS
+    want = 3 * (SETTLE_GATE_STEPS + WARMUP_STEPS)
     if any(launches[k] != want for k in expect) \
             or any(launches[k] for k in idle):
         raise AssertionError(f"expected {want} launches of each of {expect} "
@@ -699,20 +830,44 @@ def phase_settle(device, geom=None) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _counting(owner, attr: str):
+    """Count the calls of `owner.attr` (a function or a method) inside the
+    context; yields a one-element list that holds the count."""
+    real, calls = getattr(owner, attr), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(owner, attr, counted)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, real)
+
+
 def _cli_run(argv: list[str], metrics: str,
              expect=(*SOLVE_KERNELS, "density_rho")
              ) -> tuple[list[dict], dict]:
     """One in-process run of the runner; (its JSONL records, the kernel
-    launches it made). Raises unless it exits 0 and launched every kernel
-    of `expect`."""
+    launches it made). Raises unless it exits 0, launched every kernel of
+    `expect`, captured one CUDA graph and allocated one pair-kernel
+    scratch (its diagnostics take the rollout's)."""
     from pdb_sph_tpu_torch import cli
     from pdb_sph_tpu_torch.ops import cuda_pbf
 
     cuda_pbf.reset_launches()
-    rc = cli.main(argv + ["--device", "cuda", "--metrics", metrics])
+    with _counting(cuda_pbf, "alloc_scratch") as scratches, \
+            _counting(torch.cuda.CUDAGraph, "capture_begin") as captures:
+        rc = cli.main(argv + ["--device", "cuda", "--metrics", metrics])
     launches = dict(cuda_pbf.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"cli exited {rc}: {argv}")
+    if scratches != [1] or captures != [1]:
+        raise AssertionError(f"{argv}: {captures[0]} graph captures and "
+                             f"{scratches[0]} scratch allocations, not 1 "
+                             "each")
     with open(metrics) as f:
         records = [json.loads(line) for line in f]
     if records[-1]["event"] != "done":
@@ -733,7 +888,8 @@ def _cli_run(argv: list[str], metrics: str,
           f"median chunk {chunk_rate:.2f} steps/s); {len(diag)} diagnostic "
           f"records (last: mean rho {last.get('mean_density', 0):.1f}, max "
           f"err {last.get('max_density_err', 0):.4f}, maxv "
-          f"{last.get('max_speed', 0):.4f}); launches {launches}")
+          f"{last.get('max_speed', 0):.4f}); one graph capture, one "
+          f"pair-kernel scratch; launches {launches}")
     for k in expect:
         if not launches[k]:
             raise AssertionError(f"{k} was not launched in {argv}")
@@ -746,6 +902,7 @@ def phase_cli(device, out_dir: str) -> tuple[int, dict]:
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.core.step import diagnostics_fn
     from pdb_sph_tpu_torch.io import checkpoint
+    from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import fence
 
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -789,20 +946,27 @@ def phase_cli(device, out_dir: str) -> tuple[int, dict]:
           f"{spawned[0]:.1f} max {spawned[1]}; at step "
           f"{int(state.step)} mean {final[0]:.1f} max {final[1]}")
 
-    # what one diagnostic record costs the runner: diagnostics_fn and the
-    # four host reads, on the settled 80k dam of the first run
+    # what one diagnostic record costs the runner: diagnostics_fn on the
+    # rollout's scratch and the four host reads, on the settled 80k dam of
+    # the first run; in turns with a record whose kernel wrapper allocates
+    # its own scratch, as every record did before the runner passed one
     cfg, state = checkpoint.load(ck, device)
-    secs = []
-    for _ in range(REPS + 2):
+    scratch = cuda_pbf.alloc_scratch(
+        cfg, cuda_pbf.pad_to_chunks(cfg, cfg.n), device)
+    secs: dict[str, list[float]] = {"scratch": [], "fresh": []}
+    for i in range(2 * (REPS + 2)):
+        mode = "fresh" if i % 2 else "scratch"
         fence(device)
         t0 = time.perf_counter()
-        d = diagnostics_fn(cfg, state)
+        d = diagnostics_fn(cfg, state, scratch if mode == "scratch" else None)
         _ = (float(d.mean_density), float(d.max_density_err),
              float(d.max_speed), int(d.n_escaped))
-        secs.append(time.perf_counter() - t0)
+        secs[mode].append(time.perf_counter() - t0)
     print(f"[cli] one diagnostic record at n={cfg.n}: "
-          f"{1e3 * statistics.median(secs[2:]):.4f} ms (median of {REPS}, "
-          "host clock, reads included)")
+          f"{1e3 * statistics.median(secs['scratch'][2:]):.4f} ms on the "
+          f"rollout's scratch, {1e3 * statistics.median(secs['fresh'][2:]):.4f}"
+          f" ms with a fresh one (medians of {REPS} in turns, host clock, "
+          "reads included)")
 
     # the tensor-core forms through the environment, as a user sets them
     tc_ck = os.path.join(out_dir, "dam_tc.npz")
@@ -858,7 +1022,7 @@ def phase_c2(device, state60, n: int = N_MAIN) -> dict:
         finite = bool(torch.isfinite(st.x).all())
         print(f"[c2] own {own}: {C2_STEPS}-step rollout stats "
               f"{stats.tolist()}, finite {finite}, launches {launches}")
-        want = {"density_lambda": 3 * C2_STEPS, "project": 3 * C2_STEPS}
+        want = dict.fromkeys(SOLVE_KERNELS, 3 * (C2_STEPS + WARMUP_STEPS))
         if stats.tolist() != [0, 0, 0] or not finite or launches != want:
             raise AssertionError(f"own {own}: rollout stats or launches "
                                  "are wrong")
@@ -897,9 +1061,11 @@ def phase_restricted(device, state60, n: int = N_MAIN) -> dict:
 
 def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
     """The one-rank sharded path (D = 1, its fast path) at the flagship
-    size: SHARD_STEPS steps bit for bit the Stepper's, then a
-    SHARD_ROLLOUT-step rollout with stats [n, 0, 0, 0, 0]; returns its
-    launches."""
+    size: SHARD_STEPS steps bit for bit the Stepper's; then a
+    SHARD_ROLLOUT-step rollout (its first call: the warm-up step, the
+    capture and the replays) with stats [n, 0, 0, 0, 0], bit for bit the
+    eager ShardedStepper loop aggregated as the JAX rollout does, and each
+    one's steps/s; returns the rollout's launches."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.parallel import sharded
@@ -925,20 +1091,49 @@ def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
     cuda_pbf.reset_launches()
     fence(device)
     t0 = time.perf_counter()
-    sst, stats, diag = rollout(sst)
+    got, stats, diag = rollout(sst)
     fence(device)
-    secs = time.perf_counter() - t0
+    first_s = time.perf_counter() - t0
     launches = dict(cuda_pbf.LAUNCHES)
-    d = sharded.make_sharded_diagnostics(cfg, pcfg)(sst)[0].tolist()
+
+    e, e_stats, e_diag = sst, [], []
+    fence(device)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_ROLLOUT):
+        e, s, dg = step.step(e)
+        e_stats.append(s)
+        e_diag.append(dg)
+    fence(device)
+    eager_s = time.perf_counter() - t0
+    want_stats = torch.stack(e_stats).sum(0)
+    want_stats[0] = e_stats[-1][0]
+    want_diag = torch.stack(e_diag).amax(0)
+    same = (all(torch.equal(a, b) for a, b in zip(got, e))
+            and torch.equal(stats[0], want_stats)
+            and torch.equal(diag[0], want_diag))
+    fence(device)
+    t0 = time.perf_counter()
+    rollout(sst)
+    fence(device)
+    graph_s = time.perf_counter() - t0
+
+    d = sharded.make_sharded_diagnostics(
+        cfg, pcfg, scratch=rollout.stepper.work.scratch)(got)[0].tolist()
     print(f"[fastpath] D=1 n={n}: {SHARD_STEPS} steps bitwise equal to the "
-          f"Stepper; {SHARD_ROLLOUT} more steps in {secs:.4f} s = "
-          f"{SHARD_ROLLOUT / secs:.2f} steps/s on {card}; stats "
-          f"{stats.tolist()}, diag {diag.tolist()}; mean rho {d[0]:.1f} "
-          f"max err {d[1]:.4f}; launches "
+          f"Stepper; {SHARD_ROLLOUT} more steps: graph ShardedRollout "
+          f"{SHARD_ROLLOUT / graph_s:.2f} steps/s (first call, with its "
+          f"warm-up step and capture, {first_s:.4f} s), eager "
+          f"ShardedStepper loop {SHARD_ROLLOUT / eager_s:.2f} steps/s on "
+          f"{card}; x, v, ids, bounds, stats and diag bitwise equal: {same}; "
+          f"stats {stats.tolist()}, diag {diag.tolist()}; mean rho "
+          f"{d[0]:.1f} max err {d[1]:.4f}; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
+    if not same:
+        raise AssertionError("the one-rank graph rollout left the eager "
+                             "ShardedStepper loop's bits")
     if stats.tolist() != [[n, 0, 0, 0, 0]] or diag[0, 2] != 0:
         raise AssertionError("one-rank rollout stats are wrong")
-    want = 3 * SHARD_ROLLOUT
+    want = 3 * (SHARD_ROLLOUT + WARMUP_STEPS)
     if launches["density_lambda"] != want or launches["project"] != want:
         raise AssertionError(f"expected {want} solve launches: {launches}")
     return launches
@@ -1135,6 +1330,10 @@ def main() -> int:
         got = phase_main(device, card, KernelGeometry(**switches),
                          steps=SHORT_STEPS)
         short.update({k: v for k, v in got.items() if k in TC_FORMS and v})
+    graph_dir = os.path.join(build_dir, "chip_smoke_graph")
+    os.makedirs(graph_dir, exist_ok=True)
+    phase_graph(device, card, graph_dir)
+    phase_graph(device, card, graph_dir, geom=tc_geom)
     fast = phase_fastpath(device, card)
     ranks = phase_two_ranks(device, card)
     phase_cell(device, os.path.join(build_dir, "chip_smoke_cell"))

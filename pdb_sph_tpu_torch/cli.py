@@ -262,12 +262,10 @@ def _run(args, cfg: SimConfig, state, device: torch.device,
     t_start = time.perf_counter()
     try:
         while done < args.steps:
+            # the final partial chunk runs fewer steps on the same rollout
             this_chunk = min(chunk, args.steps - done)
-            if this_chunk != chunk:  # final partial chunk: exact step count
-                rollout = make_rollout(cfg, args.backend, this_chunk,
-                                       with_stats=True, device=device)
             t0 = time.perf_counter()
-            state, stats = rollout(state)
+            state, stats = rollout(state, this_chunk)
             ovf = stats.tolist()  # device -> host: the chunk's fence
             dt_wall = time.perf_counter() - t0
             done += this_chunk
@@ -284,7 +282,7 @@ def _run(args, cfg: SimConfig, state, device: torch.device,
                 "nan_detected": ovf[2] > 0,
             }
             if args.metrics_every and done % args.metrics_every == 0:
-                d = diagnostics_fn(cfg, state)
+                d = diagnostics_fn(cfg, state, rollout.stepper.scratch)
                 record.update(
                     mean_density=float(d.mean_density),
                     max_density_err=float(d.max_density_err),
@@ -436,9 +434,11 @@ def _mesh_loop(group, device, args, backend: str, cfg: SimConfig, arrays,
             print(msg, file=sys.stderr)
 
     def programs(c, pc, steps):
-        return (sharded.make_sharded_rollout(c, pc, group, backend, steps,
-                                             device),
-                sharded.make_sharded_diagnostics(c, pc, group, backend))
+        roll = sharded.make_sharded_rollout(c, pc, group, backend, steps,
+                                            device)
+        work = roll.stepper.work
+        return roll, sharded.make_sharded_diagnostics(
+            c, pc, group, backend, work.scratch if work else None)
 
     pcfg = sharded.ParallelConfig.create(cfg, D, state=state)
     cfg_active = cfg
@@ -484,12 +484,10 @@ def _mesh_loop(group, device, args, backend: str, cfg: SimConfig, arrays,
                                       geom=[dataclasses.asdict(cfg.geom),
                                             dataclasses.asdict(
                                                 cfg_active.geom)]))
+            # the final partial chunk runs fewer steps on the same rollout
             this_chunk = min(chunk, args.steps - done)
-            if this_chunk != chunk:  # final partial chunk: exact step count
-                rollout = sharded.make_sharded_rollout(
-                    cfg_active, pcfg, group, backend, this_chunk, device)
             t0 = time.perf_counter()
-            sst, stats, sdiag = rollout(sst)
+            sst, stats, sdiag = rollout(sst, this_chunk)
             stats, sdiag = stats.cpu().numpy(), sdiag.cpu().numpy()
             dt_wall = time.perf_counter() - t0
             done += this_chunk

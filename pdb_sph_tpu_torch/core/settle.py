@@ -59,21 +59,19 @@ def settle_check(device: torch.device | str, n: int = 8192,
     cfg = default_config(n=n, **({} if geom is None else {"geom": geom}))
     state = spawn(cfg, "dam_break", seed=0, device=device)
     stats = torch.zeros((3,), dtype=torch.int32, device=device)
-    rollout = make_rollout(cfg, "window", min(CHUNK, steps), with_stats=True,
+    rollout = make_rollout(cfg, "window", CHUNK, with_stats=True,
                            device=device)
     t0 = time.perf_counter()
     done = 0
     while done < steps:
-        if steps - done < rollout.unroll_steps:
-            rollout = make_rollout(cfg, "window", steps - done,
-                                   with_stats=True, device=device)
-        state, chunk_stats = rollout(state)
+        chunk = min(CHUNK, steps - done)
+        state, chunk_stats = rollout(state, chunk)
         stats += chunk_stats
-        done += rollout.unroll_steps
+        done += chunk
     fence(device)
     seconds = time.perf_counter() - t0
 
-    d = diagnostics_fn(cfg, state)
+    d = diagnostics_fn(cfg, state, rollout.stepper.scratch)
     out = {
         "n": n,
         "step": int(state.step),

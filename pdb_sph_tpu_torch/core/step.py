@@ -20,21 +20,33 @@ runner's metrics.
 
 A `Stepper` holds the config, the device (the card unless the caller asks
 for the CPU), and what the solve reuses from step to step: the two
-ping-pong buffers and the pair kernels' scratch. A `Rollout` runs many
-steps as a Python loop with no host synchronisation inside it, summing the
-per-step stats vector [table_overflow, plan_overflow, nonfinite] on the device.
+ping-pong buffers, the pair kernels' scratch, and the step's constant
+tensors (`make_constants`), all made when it is built. A window step then
+reads nothing back from the card and copies nothing from the host: every
+shape follows from the config, and every choice that depends on the data
+is made on the device. `chip_smoke.py` holds it to that on the card by
+running steps under `torch.cuda.set_sync_debug_mode("error")`.
+
+So a `Rollout` on a card runs the window backend as a CUDA graph, the
+counterpart of the JAX rollout's jitted scan: its first call captures one
+step (`CapturedStep`, whose body is `step_into`), and every call replays
+it once a step. On the CPU, and on the `cell` and `dense` backends, a
+Rollout is a Python loop over `Stepper.step`. Either way it sums the
+per-step stats vector [table_overflow, plan_overflow, nonfinite] on the
+device.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import functools
+from typing import Callable, Sequence
 
 import torch
 
 from ..config import SimConfig
 from ..ops import cell_list, cuda_pbf, dense, hashgrid
 from ..ops.collide import finalize
-from ..ops.integrate import predict
+from ..ops.integrate import gravity_vector, predict
 from ..ops.smoothing import f32
 from ..state import SimState, StepDiagnostics
 from ..utils.platform import resolve_device
@@ -118,7 +130,9 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     return (out, _stats(overflow, x, v)) if with_stats else out
 
 
-def diagnostics_fn(cfg: SimConfig, state: SimState) -> StepDiagnostics:
+def diagnostics_fn(cfg: SimConfig, state: SimState,
+                   scratch: cuda_pbf.PairScratch | None = None
+                   ) -> StepDiagnostics:
     """Observability of the current state (pdb_sph_tpu/core/step.py:130-176),
     every field a 0-dim tensor on the state's device.
 
@@ -129,7 +143,8 @@ def diagnostics_fn(cfg: SimConfig, state: SimState) -> StepDiagnostics:
     and n_overflow is 0. Only a particle with a non-finite position, whose
     rho means nothing, is left out of the density fields. The sorted
     positions and rho live in buffers of their own, so a Stepper's
-    ping-pong buffers are never touched.
+    ping-pong buffers are never touched; its pair-kernel scratch may be
+    passed as `scratch` (else the kernel's wrapper allocates one).
     """
     x, n = state.x, state.x.shape[0]
     sorted_cid, order = sort_cells(cfg, hashgrid.cell_ids(cfg, x))
@@ -137,7 +152,7 @@ def diagnostics_fn(cfg: SimConfig, state: SimState) -> StepDiagnostics:
     p4 = torch.zeros((sorted_cid.shape[0], 4), dtype=torch.float32,
                      device=x.device)
     p4[:n, :3] = x[order]
-    rho = cuda_pbf.density_rho(cfg, p4, plan, n)[:n, 3]
+    rho = cuda_pbf.density_rho(cfg, p4, plan, n, scratch=scratch)[:n, 3]
 
     measured = torch.isfinite(p4[:n, :3]).all(dim=1)
     zero = torch.zeros_like(rho)
@@ -156,6 +171,15 @@ def diagnostics_fn(cfg: SimConfig, state: SimState) -> StepDiagnostics:
     )
 
 
+def make_constants(cfg: SimConfig, device: torch.device) -> None:
+    """Make the step's constant tensors on `device` now (each is kept per
+    value and device: `ops.integrate.gravity_vector`,
+    `ops.cuda_pbf.window_offsets`), so that no step, plan or capture
+    builds one from host values."""
+    gravity_vector(cfg.gravity, device)
+    cuda_pbf.window_offsets(cfg.nb_grid_width, device)
+
+
 class Stepper:
     """SimState -> SimState for one config, backend and device."""
 
@@ -165,6 +189,7 @@ class Stepper:
         self.cfg = cfg
         self.backend = resolve_backend(backend)
         self.device = resolve_device(device)
+        make_constants(cfg, self.device)
         self.bufs = self.scratch = None
         if self.backend == "window":
             n_pad = cuda_pbf.pad_to_chunks(cfg, cfg.n)
@@ -176,14 +201,18 @@ class Stepper:
                 self.scratch = cuda_pbf.alloc_scratch(cfg, n_pad,
                                                       self.device)
 
-    def step(self, state: SimState, with_stats: bool = False,
-             mark: Mark | None = None):
+    def check(self, state: SimState) -> None:
+        """Raise unless `state` has this config's size on this device."""
         if state.x.shape != (self.cfg.n, 3):
             raise ValueError(f"state has {tuple(state.x.shape)} positions, "
                              f"config n = {self.cfg.n}")
         if state.x.device != self.device:
             raise ValueError(f"state on {state.x.device}, stepper on "
                              f"{self.device}")
+
+    def step(self, state: SimState, with_stats: bool = False,
+             mark: Mark | None = None):
+        self.check(state)
         return step_fn(self.cfg, self.backend, state, self.bufs,
                        with_stats=with_stats, mark=mark,
                        scratch=self.scratch)
@@ -192,9 +221,66 @@ class Stepper:
         return self.step(state)
 
 
+def step_into(stepper: Stepper, state: Sequence[torch.Tensor],
+              acc: Sequence[torch.Tensor]) -> None:
+    """One step of `stepper` that writes the next state back into the
+    tensors of `state` (x, v, ids, step) and adds its stats into acc[0]:
+    the body that a Rollout captures."""
+    out, stats = stepper.step(SimState(*state), with_stats=True)
+    for dst, src in zip(state, out):
+        dst.copy_(src)
+    acc[0].add_(stats)
+
+
+class CapturedStep:
+    """A step captured once as a CUDA graph, then replayed once a step.
+
+    `body(state, acc)` runs one step: it reads the tensors of `state`,
+    writes the next state back into them with `copy_`, and adds what it
+    measures into the tensors of `acc` (`step_into` is one). Built from a
+    first state and zero accumulators, this clones them into the graph's
+    static tensors, runs the body once eagerly on other copies and throws
+    the result away (the warm-up: it builds the kernels and fixes each pair
+    kernel's persistent grid; its launches are real and count), then
+    captures the body on `torch.cuda.graph`'s side stream. Whatever else
+    the body reads (a Stepper's buffers and scratch, the constants) keeps
+    its address for the graph's lifetime. A failed capture or replay
+    raises: nothing falls back to running the body eagerly."""
+
+    def __init__(self, body: Callable, state: Sequence[torch.Tensor],
+                 acc: Sequence[torch.Tensor]):
+        body(tuple(t.clone() for t in state), tuple(t.clone() for t in acc))
+        self.state = tuple(t.clone() for t in state)
+        self.acc = tuple(t.clone() for t in acc)
+        self.graph = torch.cuda.CUDAGraph()
+        with cuda_pbf.captured_launches() as self.launches:
+            with torch.cuda.graph(self.graph):
+                body(self.state, self.acc)
+
+    def __call__(self, state: Sequence[torch.Tensor], steps: int):
+        """`steps` steps from `state`, whose tensors are copied in and never
+        written: (clones of the final state's tensors, clones of the
+        accumulators, zeroed first)."""
+        for a in self.acc:
+            a.zero_()
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        for _ in range(steps):
+            self.graph.replay()
+        cuda_pbf.add_replays(self.launches, steps)
+        return (tuple(t.clone() for t in self.state),
+                tuple(t.clone() for t in self.acc))
+
+
 class Rollout:
-    """`unroll_steps` steps per call, queued without a host sync; with
-    stats, returns (state, stats summed over the steps)."""
+    """`unroll_steps` steps per call, or `steps` (a final partial chunk
+    runs on the same buffers and graph); with stats, returns (state, stats
+    summed over the steps). The caller's state is never written, and what
+    comes back aliases none of the rollout's tensors.
+
+    On a card, the window backend runs as a CUDA graph (`CapturedStep`,
+    captured at the first call); on the CPU, and on the `cell` and `dense`
+    backends, the steps run as a Python loop over `Stepper.step`."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  unroll_steps: int = 1, with_stats: bool = False,
@@ -204,18 +290,29 @@ class Rollout:
         self.stepper = Stepper(cfg, backend, device)
         self.unroll_steps = unroll_steps
         self.with_stats = with_stats
+        self.graphed = (self.stepper.device.type == "cuda"
+                        and self.stepper.backend == "window")
+        self.captured: CapturedStep | None = None
 
-    def __call__(self, state: SimState):
-        if not self.with_stats:
-            for _ in range(self.unroll_steps):
-                state = self.stepper.step(state)
-            return state
+    def __call__(self, state: SimState, steps: int | None = None):
+        steps = self.unroll_steps if steps is None else steps
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        self.stepper.check(state)
         total = torch.zeros((3,), dtype=torch.int32,
                             device=self.stepper.device)
-        for _ in range(self.unroll_steps):
-            state, stats = self.stepper.step(state, with_stats=True)
-            total += stats
-        return state, total
+        if self.graphed:
+            if self.captured is None:
+                self.captured = CapturedStep(
+                    functools.partial(step_into, self.stepper), state,
+                    (total,))
+            out, (total,) = self.captured(state, steps)
+            state = SimState(*out)
+        else:
+            for _ in range(steps):
+                state, stats = self.stepper.step(state, with_stats=True)
+                total += stats
+        return (state, total) if self.with_stats else state
 
 
 def make_step(cfg: SimConfig, backend: str = "auto",

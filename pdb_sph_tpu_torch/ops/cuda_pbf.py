@@ -44,11 +44,15 @@ goes to the plain torch version beside it (`*_ref`), a CUDA tensor launches
 the hand-written kernel, or raises: `csrc/pbf_window.cu` in the default
 geometry, `csrc/pbf_tc.cu` when a switch of the pass is on. `LAUNCHES`
 counts the kernel launches of each wrapper and tensor-core form, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels; a launch captured
+into a CUDA graph (`captured_launches`) counts once per replay
+(`add_replays`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
@@ -79,6 +83,31 @@ ITEMS_PER_CHUNK = 16
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# The launches recorded by the CUDA graph capture under way, if any: a
+# wrapper called while a stream captures launches nothing, its kernel runs
+# at each replay of the graph (add_replays)
+_captured: dict | None = None
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Count the wrappers' launches inside this context into the yielded
+    dict, not into LAUNCHES: for the body of a CUDA graph capture."""
+    global _captured
+    outer, _captured = _captured, dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def add_replays(captured: dict, replays: int) -> None:
+    """Add to LAUNCHES the launches of `replays` replays of a graph whose
+    capture recorded `captured`."""
+    for name, count in captured.items():
+        LAUNCHES[name] += count * replays
 
 
 class WindowPlan(NamedTuple):
@@ -149,6 +178,17 @@ def disjoint_windows(start: torch.Tensor, end: torch.Tensor):
     return start, torch.maximum(end, start)
 
 
+@functools.cache
+def window_offsets(w: int, device: torch.device) -> torch.Tensor:
+    """(9,) int32 cell-id offset of each window's (dy, dz) row on a grid of
+    width w, made once per width and device: a tensor built from host
+    values is a copy that, on a card, waits for the stream's queued work,
+    so no plan may build one."""
+    return torch.tensor(
+        [dz * w * w + dy * w for dz in (-1, 0, 1) for dy in (-1, 0, 1)],
+        dtype=torch.int32, device=device)
+
+
 def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     """sorted_cid: (n_pad,) int32 sorted cell ids, padding = num_nb_cells.
 
@@ -165,7 +205,6 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     own = cfg.geom.own
     n_pad = sorted_cid.shape[0]
     num_chunks = n_pad // own
-    w = cfg.nb_grid_width
     ncells = cfg.num_nb_cells
     dev = sorted_cid.device
 
@@ -174,9 +213,7 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     c_last = torch.where(chunk_cid < ncells, chunk_cid,
                          torch.full_like(chunk_cid, -1)).amax(dim=1)
 
-    offsets = torch.tensor(
-        [dz * w * w + dy * w for dz in (-1, 0, 1) for dy in (-1, 0, 1)],
-        dtype=torch.int32, device=dev)
+    offsets = window_offsets(cfg.nb_grid_width, dev)
     lo_cell = (c_first[:, None] + offsets - 1).clamp(0, ncells)
     hi_cell = (c_last[:, None] + offsets + 1).clamp(-1, ncells - 1)
 
@@ -314,8 +351,8 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     batch = max(1, _REF_PAIRS_PER_BATCH // (own * longest))
     # fmin/fmax, not clamp: a NaN rd2 becomes h^2 and adds nothing, as the
     # kernels' fminf/fmaxf make it
-    h2 = torch.tensor(f32(cfg.h2), device=p4.device)
-    eps = torch.tensor(f32(EPS), device=p4.device)
+    h2 = p4.new_full((), f32(cfg.h2))
+    eps = p4.new_full((), f32(EPS))
     for c0 in range(0, min(num_chunks, -(-n // own)), batch):
         c1 = min(c0 + batch, num_chunks)
         mine = p4[c0 * own:c1 * own].view(c1 - c0, own, 4)
@@ -547,7 +584,14 @@ def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
         scratch.partials.data_ptr(), scratch.counters.data_ptr(), n,
         plan.ranges.shape[0], cfg.geom.own, *consts, stream)
     kernels.check(code, fn_name)
-    LAUNCHES[name] += 1
+    counts = LAUNCHES
+    if torch.cuda.is_current_stream_capturing():
+        if _captured is None:
+            raise RuntimeError(f"{fn_name} captured into a CUDA graph outside "
+                               "captured_launches(): its replays would go "
+                               "uncounted")
+        counts = _captured
+    counts[name] += 1
     return out
 
 

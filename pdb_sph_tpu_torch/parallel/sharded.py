@@ -23,7 +23,10 @@ Backends: `window` runs the port's pair kernels on each rank (the JAX
 `pallas` backend, with the passes restricted per chunk: `restrict_plan`),
 `cell` the cell table (`ops/cell_list.py`). A one-rank run has no group
 and, on the window backend, takes the fast path `_step_single`, which is
-`core.step.step_fn` itself plus the active-slot masks.
+`core.step.step_fn` itself plus the active-slot masks; on a card its
+ShardedRollout runs that step as a CUDA graph, as `core.step.Rollout`
+does. Several ranks stay eager: gloo stages every collective through
+host memory.
 
 Deliberate differences from the JAX module (its ADVICE faults): the move
 rule donates no strip whose population exceeds `mig_capacity`
@@ -33,13 +36,14 @@ rule donates no strip whose population exceeds `mig_capacity`
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..core.step import sort_cells
+from ..core.step import CapturedStep, make_constants, sort_cells
 from ..ops import cell_list, cuda_pbf, hashgrid
 from ..ops.collide import finalize
 from ..ops.integrate import predict
@@ -610,7 +614,8 @@ def _check_group(pcfg: ParallelConfig, group: Group | None) -> None:
 
 class ShardedStepper:
     """One rank's sharded step for one (cfg, pcfg, backend): it holds the
-    rank's ping-pong buffers and pair-kernel scratch, allocated once.
+    rank's ping-pong buffers and pair-kernel scratch, allocated once, and
+    makes the step's constant tensors (core.step.make_constants).
 
     `step(sst)` -> (sst, stats (5,), diag (3,)) of this rank;
     `sst -> (sst, stats (D, 5), diag (D, 3))` gathers every rank's rows:
@@ -629,6 +634,7 @@ class ShardedStepper:
         self.cfg, self.pcfg, self.group = cfg, pcfg, group
         self.backend = backend
         self.device = resolve_device(device)
+        make_constants(cfg, self.device)
         self.work = None
         if backend == "window":
             n_loc = pcfg.capacity + (2 * pcfg.ghost_capacity
@@ -640,12 +646,16 @@ class ShardedStepper:
                        if self.device.type == "cuda" else None)
             self.work = _Work(bufs, scratch)
 
-    def step(self, sst: ShardedState):
+    def check(self, sst: ShardedState) -> None:
+        """Raise unless `sst` has this rank's capacity on this device."""
         if sst.x.shape != (self.pcfg.capacity, 3) \
                 or sst.x.device != self.device:
             raise ValueError(f"state of {tuple(sst.x.shape)} on "
                              f"{sst.x.device}; the stepper has capacity "
                              f"{self.pcfg.capacity} on {self.device}")
+
+    def step(self, sst: ShardedState):
+        self.check(sst)
         x, v, ids, bounds, stats, diag = _shard_step(
             self.cfg, self.pcfg, self.backend, self.group, self.work, *sst)
         return ShardedState(x, v, ids, bounds), stats, diag
@@ -661,11 +671,37 @@ class ShardedStepper:
         return (sst, *self.gather(stats, diag))
 
 
+def _aggregate(acc: Sequence[torch.Tensor], stats: torch.Tensor,
+               diag: torch.Tensor) -> None:
+    """Fold one step into acc = (stats (5,), diag (3,)), zero at the start
+    of a chunk, as the JAX rollout does (sharded.py:978-988): column 0 from
+    the last step, the overflow columns summed, diag the running max."""
+    total, dmax = acc
+    total.add_(stats)
+    total[0] = stats[0]
+    torch.maximum(dmax, diag, out=dmax)
+
+
+def step_into(stepper: ShardedStepper, sst: Sequence[torch.Tensor],
+              acc: Sequence[torch.Tensor]) -> None:
+    """One sharded step that writes the next state back into the tensors
+    of `sst` (x, v, ids, bounds) and folds its stats and diag into `acc`:
+    the body that a one-rank ShardedRollout captures."""
+    out, stats, diag = stepper.step(ShardedState(*sst))
+    for dst, src in zip(sst, out):
+        dst.copy_(src)
+    _aggregate(acc, stats, diag)
+
+
 class ShardedRollout:
-    """`unroll_steps` sharded steps a call, queued with no host read;
-    returns (sst, stats (D, 5), diag (D, 3)) aggregated over the chunk as
-    the JAX rollout does (sharded.py:978-988): stats column 0 from the last
-    step, the overflow columns summed, diag the max over the steps."""
+    """`unroll_steps` sharded steps a call, or `steps` (a final partial
+    chunk runs on the same buffers and graph), queued with no host read;
+    returns (sst, stats (D, 5), diag (D, 3)) aggregated over the chunk
+    (`_aggregate`). The caller's state is never written.
+
+    One rank on a card with the window backend runs as a CUDA graph of its
+    fast path (core.step.CapturedStep, captured at the first call); several
+    ranks, the CPU and the cell backend run a Python loop."""
 
     def __init__(self, cfg: SimConfig, pcfg: ParallelConfig,
                  group: Group | None = None, backend: str = "window",
@@ -675,19 +711,33 @@ class ShardedRollout:
             raise ValueError(f"unroll_steps must be >= 1, got {unroll_steps}")
         self.stepper = ShardedStepper(cfg, pcfg, group, backend, device)
         self.unroll_steps = unroll_steps
+        self.graphed = (pcfg.n_devices == 1 and backend == "window"
+                        and self.stepper.device.type == "cuda")
+        self.captured: CapturedStep | None = None
 
-    def __call__(self, sst: ShardedState):
-        total = diag = None
-        for _ in range(self.unroll_steps):
-            sst, stats, d = self.stepper.step(sst)
-            total = stats.clone() if total is None else total + stats
-            total[0] = stats[0]
-            diag = d if diag is None else torch.maximum(diag, d)
-        return (sst, *self.stepper.gather(total, diag))
+    def __call__(self, sst: ShardedState, steps: int | None = None):
+        steps = self.unroll_steps if steps is None else steps
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        self.stepper.check(sst)
+        acc = (torch.zeros((5,), dtype=torch.int32, device=sst.x.device),
+               torch.zeros((3,), dtype=torch.float32, device=sst.x.device))
+        if self.graphed:
+            if self.captured is None:
+                self.captured = CapturedStep(
+                    functools.partial(step_into, self.stepper), sst, acc)
+            out, acc = self.captured(sst, steps)
+            sst = ShardedState(*out)
+        else:
+            for _ in range(steps):
+                sst, stats, diag = self.stepper.step(sst)
+                _aggregate(acc, stats, diag)
+        return (sst, *self.stepper.gather(*acc))
 
 
 def _shard_diag(cfg: SimConfig, pcfg: ParallelConfig, backend: str,
-                group: Group | None, x, v, ids, brow) -> torch.Tensor:
+                group: Group | None, x, v, ids, brow,
+                scratch: cuda_pbf.PairScratch | None = None) -> torch.Tensor:
     """One rank's density diagnostics over its particles and their ghosts
     (the JAX `_shard_diag`, sharded.py:993-1069): (5,) float32
     [mean_density, max_density_err, max_speed, n_escaped, nan_detected].
@@ -724,7 +774,8 @@ def _shard_diag(cfg: SimConfig, pcfg: ParallelConfig, backend: str,
         p4 = torch.zeros((sorted_cid.shape[0], 4), dtype=torch.float32,
                          device=x.device)
         p4[:n_loc, :3] = torch.where(ok[order][:, None], combined[order], 0.0)
-        rho_s = cuda_pbf.density_rho(cfg, p4, plan, n_loc)[:n_loc, 3]
+        rho_s = cuda_pbf.density_rho(cfg, p4, plan, n_loc,
+                                     scratch=scratch)[:n_loc, 3]
         rho = rho_s[_inverse_permutation(order)][:cap]
         meas = active & torch.isfinite(x).all(dim=1)
     n_meas = meas.sum().clamp_min(1).float()
@@ -738,20 +789,24 @@ def _shard_diag(cfg: SimConfig, pcfg: ParallelConfig, backend: str,
 
 class ShardedDiagnostics:
     """sst -> (D, 5) float32, every rank's row of [mean_density,
-    max_density_err, max_speed, n_escaped, nan_detected]."""
+    max_density_err, max_speed, n_escaped, nan_detected]; on the window
+    backend the pair kernel takes `scratch` (a ShardedStepper's) if given,
+    else allocates its own."""
 
     def __init__(self, cfg: SimConfig, pcfg: ParallelConfig,
-                 group: Group | None = None, backend: str = "window"):
+                 group: Group | None = None, backend: str = "window",
+                 scratch: cuda_pbf.PairScratch | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown sharded backend {backend!r}")
         _validate_geometry(cfg, pcfg)
         _check_group(pcfg, group)
         self.cfg, self.pcfg, self.group = cfg, pcfg, group
         self.backend = backend
+        self.scratch = scratch
 
     def __call__(self, sst: ShardedState) -> torch.Tensor:
         row = _shard_diag(self.cfg, self.pcfg, self.backend, self.group,
-                          *sst)
+                          *sst, scratch=self.scratch)
         return row[None] if self.group is None \
             else self.group.all_gather(row)
 
@@ -772,8 +827,10 @@ def make_sharded_rollout(cfg: SimConfig, pcfg: ParallelConfig,
 
 def make_sharded_diagnostics(cfg: SimConfig, pcfg: ParallelConfig,
                              group: Group | None = None,
-                             backend: str = "window") -> ShardedDiagnostics:
-    return ShardedDiagnostics(cfg, pcfg, group, backend)
+                             backend: str = "window",
+                             scratch: cuda_pbf.PairScratch | None = None
+                             ) -> ShardedDiagnostics:
+    return ShardedDiagnostics(cfg, pcfg, group, backend, scratch)
 
 
 def distribute(cfg: SimConfig, pcfg: ParallelConfig, state: SimState,

@@ -1,13 +1,16 @@
 """Device timing on the card.
 
 Kernel launches return before the device finishes, so a host clock alone
-measures the enqueue: `fence` waits for the device, and `cuda_ms` times
-work with CUDA events recorded on the current stream.
+measures the enqueue: `fence` waits for the device, `cuda_ms` times work
+with CUDA events recorded on the current stream, and `profile_kernels`
+reads from a torch.profiler trace how busy the device was.
 """
 
 from __future__ import annotations
 
+import json
 import statistics
+from pathlib import Path
 
 import torch
 
@@ -33,3 +36,51 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def profile_kernels(fn, trace: str | Path) -> dict:
+    """Run `fn()` under torch.profiler (CPU and CUDA activity), fenced,
+    write the Chrome trace to `trace`, and return what it says of the
+    card's kernels (`kernel_busy`)."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    return kernel_busy(trace)
+
+
+def kernel_busy(trace: str | Path) -> dict:
+    """The kernels of a Chrome trace: their count, the sum of their
+    durations (`kernel_ms`), the span from the first one's start to the
+    last one's end, the device's busy time in it (the kernels' intervals
+    merged) and its share of the span, and (count, ms) by kernel name,
+    longest first. Without kernels in the trace every time is None."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kern:
+        return {"kernels": 0, "kernel_ms": None, "span_ms": None,
+                "busy_ms": None, "busy_share": None, "by_name": []}
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern)
+    busy, cur_s, cur_e = 0.0, iv[0][0], iv[0][1]
+    for s, e in iv[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e in iv) - iv[0][0]
+    by: dict[str, list] = {}
+    for e in kern:
+        by.setdefault(e["name"], [0, 0.0])
+        by[e["name"]][0] += 1
+        by[e["name"]][1] += e["dur"] / 1e3
+    return {"kernels": len(kern),
+            "kernel_ms": sum(e["dur"] for e in kern) / 1e3,
+            "span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / span if span > 0 else None,
+            "by_name": sorted(((k, c, ms) for k, (c, ms) in by.items()),
+                              key=lambda r: -r[2])}
