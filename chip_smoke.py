@@ -59,10 +59,27 @@ exits non-zero:
                80k blowup; and a short 80k dam break with
                PBF_MXU_SUM/RD2/PROJ=1 in the environment; each run captures
                one graph and allocates one pair-kernel scratch, its
-               diagnostics included.
+               diagnostics included;
+  8. scale   — the JAX package's large single-device rows
+               (benchmarks/bench_matrix.py:96-143), each in a box scaled to
+               the reference's number density ([scale] lines): the kernels
+               on the 1M dam break (wall 4.64) at step 60 (all nine forms
+               against their plain versions, the pairs within h by the
+               FP32 and the tensor-core rd2, and rho of 4096 sampled
+               particles against a brute-force sum over all 1M, within
+               DENSE_RHO_RTOL); the 1M dam break
+               rolled out 240 graph steps after a settle chunk, in the
+               default geometry and with every switch on (mean rho within
+               1 % of the default's), and the 2M dam break (wall 5.85):
+               steps/s, device ms a step (profiled), peak memory, the
+               capture, stats, box, escapes, the final diagnostics; the 1M
+               blowup through 1040 steps, diagnostics every 80; the runner
+               at 1M as the README's command, frames, GIF and checkpoint,
+               then its resume to step 100; and the one-rank sharded fast
+               path at 1M.
 
-Every path (phases 5, 6 and 7's runs, the sharded rollouts) is driven
-with the kernel launch counts set to 0 just before it and read just after;
+Every path (phases 5, 6 and 7's runs, the sharded rollouts, phase 8's
+rollouts and runs) is driven with the kernel launch counts set to 0 just before it and read just after;
 the two ranks count in their own processes and report their counts. A
 graph's launches count once per replay; the eager warm-up step before its
 capture launches for real and counts too (WARMUP_STEPS).
@@ -71,8 +88,9 @@ The line before the last is a JSON object with each kernel's launches
 (`launches_from` names the phases they were counted in: the FP32 solve
 kernels' from phase 5 and the sharded rollouts, the rho output's from
 phase 7's runs and the two ranks' diagnostics, the all-switches tensor-core kernels' from phases 5-7, the
-four one-switch instantiations' from phase 5's short rollouts), error and
-times at both steps, on the restricted plans and at each other own; the
+four one-switch instantiations' from phase 5's short rollouts; phase 8's
+paths add to the kernels they run), error and times at both steps, on the restricted
+plans, at each other own and on the 1M dam break; the
 `[done]` line before it gives the script's seconds; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package beside it, the
 script exits non-zero and prints no result.
@@ -82,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -117,7 +136,8 @@ RHO_RTOL = 1e-5
 # to ~1e-7 per neighbour. The row sums' three-piece mma is exact in its
 # products. A form that is another function than the FP32 one (rd2, proj)
 # must also lie at least TC_SEPARATION times closer to its plain version
-# than that plain version lies to the plain FP32 form.
+# than that plain version lies to the plain FP32 form. In a larger box the
+# ulp of |p|^2 <= 3 wall^2 grows, and the atol with it (_tc_lambda_atol).
 TC_LAMBDA_RTOL, TC_LAMBDA_ATOL = 1e-4, 1e-6
 TC_POS_ATOL = 1e-5
 TC_SEPARATION = 10
@@ -181,6 +201,8 @@ PAIR_FLOPS = {
     "project_tc_proj": ((3, 32), (7, 32)), "project_tc_sum": ((8, 0), (11, 0)),
     "project_tc_proj_sum": ((3, 32), (7, 32)),
 }
+# the pair kernels' names as a profiler trace gives them
+PAIR_KERNEL_NAMES = ("window_kernel", "density_tc_kernel", "project_tc_kernel")
 SOLVE_KERNELS = ("density_lambda", "project")
 TC_SOLVE_KERNELS = ("density_tc_rd2_sum", "project_tc_proj_sum")
 # wrapper counter of each tensor-core form -> the geometry's switches
@@ -224,6 +246,30 @@ RANKS_TIMEOUT_S = 600
 # the cell backend against the window backend over 3 steps (ROADMAP
 # "Parity method"); its table sized from the spawn with this slack
 CELL_STEPS, CELL_SLACK = 3, 1.5
+# [scale]: the JAX package's large single-device rows
+# (benchmarks/bench_matrix.py:96-143), each in a box scaled to keep the
+# reference's number density (wall = 2 (n / 80k)^(1/3)): row -> (scene,
+# n, wall)
+SCALE_ROWS = {"dam1m": ("dam_break", 1_000_000, 4.64),
+              "dam2m": ("dam_break", 2_000_000, 5.85),
+              "blowup1m": ("blowup", 1_000_000, 4.64)}
+# a dam row: one settle chunk, then a timed rollout, then steps profiled for
+# the device ms a step
+SCALE_SETTLE, SCALE_STEPS, SCALE_PROFILE_STEPS = 240, 240, 20
+# the JAX rows' in-box test (bench_matrix.py:81): [-0.25, wall + 0.25]^3
+BOX_MARGIN = 0.25
+# the blowup row: JAX settles it 1000 steps, then times a 20-step chunk
+# (bench_matrix.py:137-138); diagnostics every BLOWUP_EVERY steps
+BLOWUP_STEPS, BLOWUP_EVERY = 1040, 80
+# the sampled dense oracle at 1M: rho of ORACLE_SAMPLES seeded-random
+# particles against a brute-force sum over all n, ORACLE_BATCH at a time.
+# The kernel adds ~50 float32 terms in another order (~1e-6 relative); a
+# neighbour within 0.9 h adds more than 1.4e-4 of rho0
+ORACLE_SAMPLES, ORACLE_SEED, ORACLE_BATCH = 4096, 0, 32
+DENSE_RHO_RTOL = 1e-4
+# the runner at 1M as the README's command (--grid-width 29), then a resume
+# to step 100 in chunks of SCALE_CLI_CHUNK, the last one partial
+SCALE_CLI_STEPS, SCALE_CLI_RESUME, SCALE_CLI_CHUNK = 60, 40, 30
 
 
 def phase_device() -> str:
@@ -290,6 +336,82 @@ def _near_pairs(cfg, p4, plan, n: int) -> int:
     return near
 
 
+def _rd2_census(cfg, p4, plan, n: int, head: str) -> int:
+    """The (real own row, candidate) pairs of `plan` within h by the FP32
+    distance and by the tensor-core forms' rd2, (|o|^2 - 2 o.c) + |c|^2
+    with the bf16 split dot: taken from absolute coordinates, its error
+    grows with |p|^2, that is with the box. Prints both counts, the pairs
+    only one of them counts and the two rd2's largest and mean difference
+    on the pairs both count. Returns the FP32 count (the bound's `near`)."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    h2 = torch.tensor(float(cfg.h2), dtype=torch.float32, device=p4.device)
+    zero = torch.zeros((), dtype=torch.int64, device=p4.device)
+    fp32, split, both = zero.clone(), zero.clone(), zero.clone()
+    diff_max = torch.zeros((), dtype=torch.float32, device=p4.device)
+    diff_sum = torch.zeros((), dtype=torch.float64, device=p4.device)
+    for (row0, mine, _, rd2, mask, _), (_, _, _, rs, _, _) in zip(
+            cuda_pbf._pair_blocks(cfg, p4, plan, n),
+            cuda_pbf._pair_blocks(cfg, p4, plan, n, split_rd2=True)):
+        rows = row0 + torch.arange(mine.shape[0] * mine.shape[1],
+                                   device=p4.device).view(mine.shape[:2])
+        real = mask & (rows < n)[..., None]
+        a, b = (rd2 < h2) & real, (rs < h2) & real
+        diff = torch.where(a & b, (rs - rd2).abs(), torch.zeros_like(rd2))
+        fp32 += a.sum()
+        split += b.sum()
+        both += (a & b).sum()
+        diff_max = torch.maximum(diff_max, diff.amax())
+        diff_sum += diff.double().sum()
+    fp32, split, both = int(fp32), int(split), int(both)
+    print(f"{head} rd2 of the tensor-core forms (split dot from absolute "
+          f"coordinates, |p|^2 <= 3 wall^2 = {3 * cfg.wall ** 2:.2f}) vs the "
+          f"FP32 distance, n={n}: {fp32} pairs within h by FP32, {split} by "
+          f"the split form; {fp32 - both} only by FP32 and {split - both} "
+          f"only by the split form ({100 * (fp32 + split - 2 * both) / fp32:.3f}"
+          f" % of the FP32 pairs); |rd2 difference| on the pairs both count "
+          f"max {float(diff_max):.3e}, mean {float(diff_sum) / both:.3e} "
+          f"(h^2 = {cfg.h2:g})")
+    return fp32
+
+
+def _dense_oracle(cfg, p4, plan, n: int, head: str) -> float:
+    """rho of ORACLE_SAMPLES seeded-random particles from the rho kernel
+    against a brute-force sum over all n particles (the kernels' clamped
+    rd2, the poly6 terms summed in float64), in batches on the card. A
+    neighbour the plan missed shows as a step in a particle's error; the
+    order of the kernel's float32 sums only as noise, ~1e-6. Raises above
+    DENSE_RHO_RTOL; returns the largest relative error."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.ops.smoothing import EPS
+
+    rho = cuda_pbf.density_rho(cfg, p4, plan, n)[:n, 3]
+    gen = torch.Generator(device="cpu").manual_seed(ORACLE_SEED)
+    idx = torch.randperm(n, generator=gen)[:ORACLE_SAMPLES].to(p4.device)
+    x = p4[:n, :3]
+    h2 = torch.tensor(float(cfg.h2), dtype=torch.float32, device=p4.device)
+    eps = torch.tensor(EPS, dtype=torch.float32, device=p4.device)
+    want = []
+    for i in range(0, idx.numel(), ORACLE_BATCH):
+        q = x[idx[i:i + ORACLE_BATCH]]
+        d = [q[:, None, a] - x[None, :, a] for a in range(3)]
+        rd2 = torch.fmax(torch.fmin(d[0] * d[0] + d[1] * d[1] + d[2] * d[2],
+                                    h2), eps)
+        t = (h2 - rd2).double()
+        want.append((t * t * t).sum(dim=1))
+    want = torch.cat(want) * cfg.poly6_coeff
+    rel = (rho[idx].double() - want).abs() / want
+    worst = float(rel.max())
+    print(f"{head} sampled dense oracle: rho of {idx.numel()} particles "
+          f"(seed {ORACLE_SEED}) from the rho kernel vs a brute-force sum "
+          f"over all {n} in float64: max rel err {worst:.3e}, median "
+          f"{float(rel.median()):.3e}, {int((rel > 1e-6).sum())} above 1e-6 "
+          f"(gate {DENSE_RHO_RTOL:g}); oracle mean rho {float(want.mean()):.2f}")
+    if not worst <= DENSE_RHO_RTOL:
+        raise AssertionError(f"rho kernel vs the dense oracle: {worst:.3e}")
+    return worst
+
+
 def _bound(name: str, plan, n: int, own: int,
            near: int) -> tuple[float, str, int]:
     """(bound ms, "operations" or "bytes", pairs) of one launch of kernel
@@ -343,13 +465,15 @@ def _check_masked(name: str, out: torch.Tensor, src: torch.Tensor, plan,
 
 
 def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
-                  plan_p=None, reps: int = REPS,
-                  tag: str = "") -> tuple[dict, torch.Tensor]:
+                  plan_p=None, reps: int = REPS, tag: str = "",
+                  head: str = "[kernels]",
+                  near: int | None = None) -> tuple[dict, torch.Tensor]:
     """K1 lambda, K2 and K1 rho against their plain versions on one state:
     errors within the tolerances, two launches bitwise equal, the rows of
     masked chunks as JAX writes them, times beside their bounds. K1 runs on
-    `plan`, K2 on `plan_p` (default `plan`). Returns ({counter: (max|err|,
-    ms, plain ms or None, bound ms, bound by)}, K1's output)."""
+    `plan`, K2 on `plan_p` (default `plan`); `near`, the pairs of `plan`
+    within h, is counted here when None. Returns ({counter: (max|err|, ms,
+    plain ms or None, bound ms, bound by)}, K1's output)."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import cuda_ms
 
@@ -412,10 +536,11 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
             "density_rho": float(rho_err.max())}
     mean_c, max_c = _candidates(plan)
     items = int(plan.seg_prefix[-1])
-    near = _near_pairs(cfg, p4, plan, n)
+    if near is None:
+        near = _near_pairs(cfg, p4, plan, n)
     near_p = near if plan_p is plan else _near_pairs(cfg, p4, plan_p, n)
     pairs = _bound("density_lambda", plan, n, cfg.geom.own, near)[2]
-    print(f"[kernels]{tag} n={n} after {step} steps; candidates/chunk "
+    print(f"{head}{tag} n={n} after {step} steps; candidates/chunk "
           f"mean {mean_c:.1f} max {max_c}; {pairs} pairs, {near} within h "
           f"({100 * near / max(pairs, 1):.2f} %); {items} work items of <= "
           f"{int(plan.seg_len)} candidates; masked rows (lambda, project, "
@@ -437,7 +562,7 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
         plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
                      if r_ms is not None else "plain not timed here")
         every, within = (f[0] for f in PAIR_FLOPS[name])
-        print(f"[kernels]{tag} {KERNELS[name][0]} at step {step}: kernel "
+        print(f"{head}{tag} {KERNELS[name][0]} at step {step}: kernel "
               f"{k_ms:.4f} ms (median of {reps}, CUDA events), {plain_txt}; "
               f"bound {bound_ms:.4f} ms by {bound_by} ({kpairs} pairs x "
               f"{every} + {knear} x {within} flops at "
@@ -469,9 +594,11 @@ def phase_kernels(device, n: int = N_MAIN) -> tuple[dict, object]:
     state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
     state60 = state
     p4, plan = _sorted_p4(cfg, state.x)
-    mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, PLAIN_REPS)
+    near = _rd2_census(cfg, p4, plan, n, "[kernels]")
+    mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, PLAIN_REPS,
+                             near=near)
     mid.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS,
-                           TC_PLAIN_REPS))
+                           TC_PLAIN_REPS, near=near))
     state = pbf.make_rollout(cfg, "window", SETTLED_STEP - SETTLE_STEPS,
                              device=device)(state)
     p4, plan = _sorted_p4(cfg, state.x)
@@ -481,15 +608,24 @@ def phase_kernels(device, n: int = N_MAIN) -> tuple[dict, object]:
                 settled[k][3]) for k, v in mid.items()}, state60
 
 
+def _tc_lambda_atol(wall: float) -> float:
+    """TC_LAMBDA_ATOL, reckoned above from the ulp of |p|^2 <= 12 at wall
+    2, at a box of `wall`: times the ulp of 3 wall^2 over the ulp of 12 (1
+    at wall 2, 8 at the 1M rows' 4.64)."""
+    return TC_LAMBDA_ATOL * math.ulp(3.0 * wall * wall) / math.ulp(12.0)
+
+
 def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
                 plain_reps: int, plan_p=None, reps: int = REPS,
-                tag: str = "") -> dict:
+                tag: str = "", head: str = "[kernels]",
+                near: int | None = None) -> dict:
     """The six tensor-core instantiations against their plain versions on
     one state; the project forms take the FP32 kernel's lambda, as the FP32
     project kernel does, and run on `plan_p` (default `plan`). Each
     launched twice for bitwise-equal output, the scratch's counters back at
-    0 after, the rows of masked chunks as JAX writes them. Returns
-    {counter: (max|err|, ms, plain ms or None, bound ms, bound by)}."""
+    0 after, the rows of masked chunks as JAX writes them. `near` as in
+    _fp32_kernels. Returns {counter: (max|err|, ms, plain ms or None, bound
+    ms, bound by)}."""
     import dataclasses
 
     from pdb_sph_tpu_torch.ops import cuda_pbf
@@ -499,7 +635,8 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
     fp32 = {"density": cuda_pbf.density_pass_ref(cfg, p4, plan, n)[:n, 3],
             "project": cuda_pbf.project_pass_ref(cfg, d_fp, plan_p,
                                                  n)[:n, :3]}
-    near = {"density": _near_pairs(cfg, p4, plan, n)}
+    near = {"density": (_near_pairs(cfg, p4, plan, n) if near is None
+                        else near)}
     near["project"] = (near["density"] if plan_p is plan
                        else _near_pairs(cfg, p4, plan_p, n))
     scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], p4.device)
@@ -532,9 +669,13 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
         form = float((w.squeeze(-1) - fp32["density" if density
                                            else "project"]).abs().max())
         if density:
-            n_bad = int((err > TC_LAMBDA_ATOL
-                         + TC_LAMBDA_RTOL * w.abs()).sum())
-            tol = f"{TC_LAMBDA_ATOL:g} + {TC_LAMBDA_RTOL:g}|ref|"
+            atol = _tc_lambda_atol(cfg.wall)
+            n_bad = int((err > atol + TC_LAMBDA_RTOL * w.abs()).sum())
+            tol = f"{atol:g} + {TC_LAMBDA_RTOL:g}|ref|"
+            if atol != TC_LAMBDA_ATOL:
+                wall2 = int((err > TC_LAMBDA_ATOL
+                             + TC_LAMBDA_RTOL * w.abs()).sum())
+                tol += f"; {wall2} outside the wall-2 atol {TC_LAMBDA_ATOL:g}"
         else:
             n_bad = int((err > TC_POS_ATOL).sum())
             tol = f"atol {TC_POS_ATOL:g}"
@@ -547,7 +688,7 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
             near["density" if density else "project"])
         plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
                      if r_ms is not None else "plain not timed here")
-        print(f"[kernels]{tag} {KERNELS[name][0]} at step {step}: max|err| "
+        print(f"{head}{tag} {KERNELS[name][0]} at step {step}: max|err| "
               f"{float(err.max()):.3e} vs plain (tol {tol}, {n_bad} "
               f"outside); plain form vs plain FP32 form max|diff| "
               f"{form:.3e}; kernel {k_ms:.4f} ms (median of {reps}, CUDA "
@@ -688,6 +829,16 @@ def _profile_line(tag: str, r: dict, steps: int) -> str:
     return (f"{tag}: device busy {100 * r['busy_share']:.1f} % of "
             f"{r['span_ms']:.3f} ms, {r['kernel_ms'] / steps:.4f} device ms "
             f"and {r['kernels'] / steps:.1f} kernels a step")
+
+
+def _pair_share(r: dict, steps: int) -> str:
+    """What the pair kernels take of a profile's device ms a step."""
+    if not r["kernels"]:
+        return ""
+    pair = sum(ms for name, _, ms in r["by_name"]
+               if any(k in name for k in PAIR_KERNEL_NAMES))
+    return (f", of which the pair kernels {pair / steps:.4f} ms "
+            f"({100 * pair / r['kernel_ms']:.1f} %)")
 
 
 def phase_graph(device, card: str, out_dir: str, geom=None,
@@ -848,7 +999,7 @@ def _counting(owner, attr: str):
 
 
 def _cli_run(argv: list[str], metrics: str,
-             expect=(*SOLVE_KERNELS, "density_rho")
+             expect=(*SOLVE_KERNELS, "density_rho"), head: str = "[cli]"
              ) -> tuple[list[dict], dict]:
     """One in-process run of the runner; (its JSONL records, the kernel
     launches it made). Raises unless it exits 0, launched every kernel of
@@ -881,7 +1032,7 @@ def _cli_run(argv: list[str], metrics: str,
     diag = [r for r in prog if "mean_density" in r]
     last = diag[-1] if diag else {}
     chunk_rate = statistics.median(r["steps_per_sec"] for r in prog)
-    print(f"[cli] {' '.join(argv)}: rc 0, last step {prog[-1]['step']}, "
+    print(f"{head} {' '.join(argv)}: rc 0, last step {prog[-1]['step']}, "
           f"{records[-1]['particle_steps_per_sec']:.1f} particle-steps/s "
           f"({records[-1]['steps_per_sec']:.2f} steps/s, "
           f"{records[-1]['wall_seconds']:.3f} s, frames and GIF included; "
@@ -1059,7 +1210,8 @@ def phase_restricted(device, state60, n: int = N_MAIN) -> dict:
     return {k: (v[1], v[3], v[4]) for k, v in fp.items()}
 
 
-def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
+def phase_fastpath(device, card: str, n: int = N_MAIN, wall: float = 2.0,
+                   head: str = "[fastpath]") -> dict:
     """The one-rank sharded path (D = 1, its fast path) at the flagship
     size: SHARD_STEPS steps bit for bit the Stepper's; then a
     SHARD_ROLLOUT-step rollout (its first call: the warm-up step, the
@@ -1071,11 +1223,13 @@ def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
     from pdb_sph_tpu_torch.parallel import sharded
     from pdb_sph_tpu_torch.utils.timing import fence
 
-    cfg = pbf.default_config(n=n)
+    cfg = pbf.default_config(n=n, wall=wall)
     st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
     pcfg = sharded.ParallelConfig.create(cfg, 1, state=st)
-    if pcfg.capacity != n:
-        raise AssertionError(f"one rank's capacity {pcfg.capacity} != {n}")
+    # one rank holds n rounded up to 128 slots (1,000,064 at 1M); a step
+    # sorts the inactive ones after every particle
+    if pcfg.capacity != -(-n // 128) * 128:
+        raise AssertionError(f"one rank's capacity {pcfg.capacity}, n {n}")
     sst = sharded.distribute(cfg, pcfg, st, device=device)
     step = sharded.make_sharded_step(cfg, pcfg, device=device)
     stepper = pbf.make_step(cfg, "window", device=device)
@@ -1083,8 +1237,9 @@ def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
     for _ in range(SHARD_STEPS):
         sst, _, _ = step(sst)
         ref = stepper(ref)
-        if not (torch.equal(sst.x, ref.x) and torch.equal(sst.v, ref.v)
-                and torch.equal(sst.ids, ref.ids)):
+        if not (torch.equal(sst.x[:n], ref.x) and torch.equal(sst.v[:n], ref.v)
+                and torch.equal(sst.ids[:n], ref.ids)
+                and bool((sst.ids[n:] < 0).all())):
             raise AssertionError("the one-rank path left the Stepper's bits")
     rollout = sharded.make_sharded_rollout(cfg, pcfg, None, "window",
                                            SHARD_ROLLOUT, device)
@@ -1119,8 +1274,8 @@ def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
 
     d = sharded.make_sharded_diagnostics(
         cfg, pcfg, scratch=rollout.stepper.work.scratch)(got)[0].tolist()
-    print(f"[fastpath] D=1 n={n}: {SHARD_STEPS} steps bitwise equal to the "
-          f"Stepper; {SHARD_ROLLOUT} more steps: graph ShardedRollout "
+    print(f"{head} D=1 n={n} wall={wall}: {SHARD_STEPS} steps bitwise equal "
+          f"to the Stepper; {SHARD_ROLLOUT} more steps: graph ShardedRollout "
           f"{SHARD_ROLLOUT / graph_s:.2f} steps/s (first call, with its "
           f"warm-up step and capture, {first_s:.4f} s), eager "
           f"ShardedStepper loop {SHARD_ROLLOUT / eager_s:.2f} steps/s on "
@@ -1131,7 +1286,8 @@ def phase_fastpath(device, card: str, n: int = N_MAIN) -> dict:
     if not same:
         raise AssertionError("the one-rank graph rollout left the eager "
                              "ShardedStepper loop's bits")
-    if stats.tolist() != [[n, 0, 0, 0, 0]] or diag[0, 2] != 0:
+    # diag: [max speed, escaped, nonfinite], each the most of any step
+    if stats.tolist() != [[n, 0, 0, 0, 0]] or diag[0, 1:].any():
         raise AssertionError("one-rank rollout stats are wrong")
     want = 3 * (SHARD_ROLLOUT + WARMUP_STEPS)
     if launches["density_lambda"] != want or launches["project"] != want:
@@ -1298,6 +1454,219 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
                              "runner did not exit 2 on it")
 
 
+def _in_box(x: torch.Tensor, wall: float) -> bool:
+    """Every particle within the JAX rows' box, [-0.25, wall + 0.25]^3."""
+    return bool(((x >= -BOX_MARGIN) & (x <= wall + BOX_MARGIN)).all())
+
+
+def phase_scale_kernels(device, row: str = "dam1m") -> dict:
+    """The kernels at a large row's size, on its dam break at step 60: all
+    nine forms against their plain versions (two launches bitwise equal,
+    counters back at 0), each timed beside its bound; the pairs within h
+    by the FP32 and the tensor-core rd2; the sampled dense oracle. Returns
+    {counter: (max|err|, ms, bound ms, bound by)}."""
+    import pdb_sph_tpu_torch as pbf
+
+    scene, n, wall = SCALE_ROWS[row]
+    cfg = pbf.default_config(n=n, wall=wall)
+    state = pbf.spawn(cfg, scene, seed=0, device=device)
+    state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
+    p4, plan = _sorted_p4(cfg, state.x)
+    del state
+    head = f"[scale] {row} kernels:"
+    near = _rd2_census(cfg, p4, plan, n, head)
+    fp, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, 0, head=head,
+                            near=near)
+    fp.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS, 0, head=head,
+                          near=near))
+    _dense_oracle(cfg, p4, plan, n, head)
+    return {k: (v[0], v[1], v[3], v[4]) for k, v in fp.items()}
+
+
+def phase_scale_rollout(device, card: str, row: str, out_dir: str,
+                        geom=None) -> dict:
+    """A large row's dam break through the graph rollout in `geom` (None:
+    the default geometry): one settle chunk (its first call, the warm-up
+    step, the capture and one replay, timed alone), then SCALE_STEPS steps
+    timed and SCALE_PROFILE_STEPS profiled (device ms a step); stats
+    [0, 0, 0] over every step, finite, in the JAX row's box, nothing
+    escaped, the geometry's two solve kernels launched 3 a timed step and
+    nothing else; the peak memory allocated from the spawn on. Returns its
+    launches, the step and the final diagnostics."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+
+    scene, n, wall = SCALE_ROWS[row]
+    steps = SCALE_STEPS
+    cfg = pbf.default_config(n=n, wall=wall,
+                             **({} if geom is None else {"geom": geom}))
+    name = _geom_name(cfg.geom)
+    expect, idle = _solve_kernels(cfg.geom)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    cuda_pbf.reset_launches()
+    rollout = pbf.make_rollout(cfg, "window", SCALE_SETTLE, with_stats=True,
+                               device=device)
+    state = pbf.spawn(cfg, scene, seed=0, device=device)
+    fence(device)
+    t0 = time.perf_counter()
+    state, total = rollout(state, 1)
+    fence(device)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, stats = rollout(state, SCALE_SETTLE - 1)
+    fence(device)
+    settle_s = time.perf_counter() - t0
+    total += stats
+
+    before = dict(cuda_pbf.LAUNCHES)
+    fence(device)
+    t0 = time.perf_counter()
+    state, stats = rollout(state, steps)
+    fence(device)
+    secs = time.perf_counter() - t0
+    total += stats
+    timed = {k: cuda_pbf.LAUNCHES[k] - before[k] for k in before}
+    profiled = []
+    prof = profile_kernels(
+        lambda: profiled.append(rollout(state, SCALE_PROFILE_STEPS)),
+        os.path.join(out_dir, f"scale_{row}_{'tc' if geom else 'default'}"
+                              ".json"))
+    total += profiled[0][1]
+    d = pbf.diagnostics_fn(cfg, state, rollout.stepper.scratch)
+    diag = {"mean_density": float(d.mean_density),
+            "max_density_err": float(d.max_density_err),
+            "max_speed": float(d.max_speed), "n_escaped": int(d.n_escaped),
+            "nan": bool(d.nan_detected)}
+    fence(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = dict(cuda_pbf.LAUNCHES)
+    x, v = state.x, state.v
+    finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
+    boxed = _in_box(x, wall)
+    print(f"[scale] {row} {scene} n={n} wall={wall} {name}: "
+          f"{steps} graph steps after a {SCALE_SETTLE}-step settle chunk in "
+          f"{secs:.4f} s = {steps / secs:.2f} steps/s = "
+          f"{n * steps / secs:.1f} particle-steps/s on {card}; first call "
+          f"(warm-up step, capture, one replay) {first_s:.4f} s, the settle "
+          f"chunk's other {SCALE_SETTLE - 1} steps {settle_s:.3f} s; "
+          + _profile_line(f"{SCALE_PROFILE_STEPS} steps profiled", prof,
+                          SCALE_PROFILE_STEPS)
+          + _pair_share(prof, SCALE_PROFILE_STEPS)
+          + f"; peak memory allocated {peak / 2 ** 30:.3f} GiB; stats over "
+          f"every step {total.tolist()}; finite {finite}; in "
+          f"[-{BOX_MARGIN}, wall + {BOX_MARGIN}]^3 {boxed}; at step "
+          f"{int(state.step)}: mean rho {diag['mean_density']:.2f}, max "
+          f"|rho/rho0 - 1| {diag['max_density_err']:.4f}, max speed "
+          f"{diag['max_speed']:.4f}, escaped {diag['n_escaped']}; timed "
+          f"launches { {k: c for k, c in timed.items() if c} }")
+    if total.tolist() != [0, 0, 0] or not finite or not boxed \
+            or diag["n_escaped"] or diag["nan"]:
+        raise AssertionError(f"{row} {name}: state or stats are wrong")
+    want = cfg.solver_iters * steps
+    if any(timed[k] != want for k in expect) or any(timed[k] for k in idle):
+        raise AssertionError(f"{row}: expected {want} timed launches of each "
+                             f"of {expect} and none of {idle}: {timed}")
+    return {"launches": launches, "step": int(state.step), **diag}
+
+
+def phase_scale_blowup(device, card: str, row: str = "blowup1m") -> dict:
+    """A large row's blowup through the explosion and the recovery:
+    BLOWUP_STEPS graph steps in chunks of BLOWUP_EVERY, the diagnostics
+    after each; stats [0, 0, 0] over every step, finite, in the box,
+    nothing escaped at any record; the heaviest chunk's candidates and the
+    segment length the work table chose at the spawn. Returns its
+    launches."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    scene, n, wall = SCALE_ROWS[row]
+    cfg = pbf.blowup_config(n=n, wall=wall)
+    state = pbf.spawn(cfg, scene, seed=0, device=device)
+    p4, plan = _sorted_p4(cfg, state.x)
+    mean_c, max_c = _candidates(plan)
+    items, seg_len = int(plan.seg_prefix[-1]), int(plan.seg_len)
+    chunks = plan.ranges.shape[0]
+    del p4, plan
+    print(f"[scale] {row} n={n} wall={wall} at the spawn: candidates/chunk "
+          f"mean {mean_c:.1f} max {max_c}; the work table chose seg_len "
+          f"{seg_len} (geometry's seg {cfg.geom.seg}) for {items} items "
+          f"over {chunks} chunks (capacity "
+          f"{cuda_pbf.ITEMS_PER_CHUNK * chunks})")
+    rollout = pbf.make_rollout(cfg, "window", BLOWUP_EVERY, with_stats=True,
+                               device=device)
+    cuda_pbf.reset_launches()
+    total = torch.zeros((3,), dtype=torch.int32, device=device)
+    records = []
+    fence(device)
+    t0 = time.perf_counter()
+    for _ in range(BLOWUP_STEPS // BLOWUP_EVERY):
+        state, stats = rollout(state)
+        total += stats
+        d = pbf.diagnostics_fn(cfg, state, rollout.stepper.scratch)
+        records.append((int(state.step), float(d.mean_density),
+                        float(d.max_speed), int(d.n_escaped),
+                        bool(d.nan_detected)))
+    fence(device)
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_pbf.LAUNCHES)
+    finite = bool(torch.isfinite(state.x).all()
+                  and torch.isfinite(state.v).all())
+    boxed = _in_box(state.x, wall)
+    print(f"[scale] {row} n={n} wall={wall}: {BLOWUP_STEPS} graph steps in "
+          f"{secs:.3f} s, diagnostics every {BLOWUP_EVERY} included "
+          f"({BLOWUP_STEPS / secs:.2f} steps/s) on {card}; stats over every "
+          f"step {total.tolist()}; finite {finite}; in box {boxed}; (step, "
+          f"mean rho, max speed): "
+          + ", ".join(f"({s}, {r:.1f}, {vmax:.3f})"
+                      for s, r, vmax, _, _ in records)
+          + f"; launches { {k: c for k, c in launches.items() if c} }")
+    if total.tolist() != [0, 0, 0] or not finite or not boxed \
+            or any(e or nan for *_, e, nan in records):
+        raise AssertionError(f"{row}: state, stats or escapes are wrong")
+    want = cfg.solver_iters * (BLOWUP_STEPS + WARMUP_STEPS * rollout.graphed)
+    if any(launches[k] != want for k in SOLVE_KERNELS) \
+            or launches["density_rho"] != len(records):
+        raise AssertionError(f"{row}: expected {want} solve launches and "
+                             f"{len(records)} rho launches: {launches}")
+    return launches
+
+
+def phase_scale_cli(device, out_dir: str, row: str = "dam1m") -> dict:
+    """The runner at a large row's size as the README's command, with
+    metrics, frames, a GIF and a checkpoint; then its resume to step
+    SCALE_CLI_STEPS + SCALE_CLI_RESUME, ending on a partial chunk; each run
+    rc 0, one graph capture, one scratch, every record's counters 0.
+    Returns their summed launches."""
+    scene, n, wall = SCALE_ROWS[row]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ck, fr = os.path.join(out_dir, "ck.npz"), os.path.join(out_dir, "fr")
+    head = f"[scale] {row} cli:"
+    _, l_run = _cli_run(
+        ["--scene", scene, "--n", str(n), "--wall", str(wall),
+         "--grid-width", "29", "--steps", str(SCALE_CLI_STEPS),
+         "--metrics-every", str(CLI_EVERY), "--render-every", str(CLI_EVERY),
+         "--width", "320", "--height", "240", "--out", fr, "--gif",
+         os.path.join(out_dir, "run.gif"), "--checkpoint", ck],
+        os.path.join(out_dir, "run.jsonl"), head=head)
+    want_png = [f"frame_{s:06d}.png"
+                for s in range(0, SCALE_CLI_STEPS + 1, CLI_EVERY)]
+    if sorted(os.listdir(fr)) != want_png:
+        raise AssertionError(f"{row} runner frames {sorted(os.listdir(fr))}")
+    resumed, l_res = _cli_run(
+        ["--resume", ck, "--steps", str(SCALE_CLI_RESUME), "--chunk",
+         str(SCALE_CLI_CHUNK), "--metrics-every", str(SCALE_CLI_CHUNK)],
+        os.path.join(out_dir, "resume.jsonl"), head=head)
+    steps = [r["step"] for r in resumed if r["event"] == "progress"]
+    last = SCALE_CLI_STEPS + SCALE_CLI_RESUME
+    if steps != [SCALE_CLI_STEPS + SCALE_CLI_CHUNK, last]:
+        raise AssertionError(f"{row} resume progress steps {steps}")
+    return {k: l_run[k] + l_res[k] for k in l_run}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1343,17 +1712,45 @@ def main() -> int:
     phase_settle(device, geom=KernelGeometry(**ALL_SWITCHES, seg=WITNESS_SEG))
     rho, tc_cli = phase_cli(device, os.path.join(build_dir, "chip_smoke_cli"))
 
-    origin = {k: "phase 5 + sharded phases" for k in SOLVE_KERNELS}
+    scale_dir = os.path.join(build_dir, "chip_smoke_scale")
+    os.makedirs(scale_dir, exist_ok=True)
+    scale_kern = phase_scale_kernels(device)
+    dam1m = phase_scale_rollout(device, card, "dam1m", scale_dir)
+    dam1m_tc = phase_scale_rollout(device, card, "dam1m", scale_dir,
+                                   geom=tc_geom)
+    share = abs(dam1m_tc["mean_density"] - dam1m["mean_density"]) \
+        / dam1m["mean_density"]
+    print(f"[scale] dam1m mean rho at step {dam1m['step']}: every switch on "
+          f"{dam1m_tc['mean_density']:.2f} vs the default geometry "
+          f"{dam1m['mean_density']:.2f} ({100 * share:.3f} %, within "
+          f"{100 * DENS_MEAN_RTOL:g} %); max speed "
+          f"{dam1m_tc['max_speed']:.4f} vs {dam1m['max_speed']:.4f}")
+    if dam1m_tc["step"] != dam1m["step"] or not share <= DENS_MEAN_RTOL:
+        raise AssertionError("dam1m: the tensor-core forms' mean density "
+                             "left the default geometry's")
+    dam2m = phase_scale_rollout(device, card, "dam2m", scale_dir)
+    blowup = phase_scale_blowup(device, card)
+    scale_cli = phase_scale_cli(device, os.path.join(scale_dir, "cli"))
+    _, n1m, wall1m = SCALE_ROWS["dam1m"]
+    fast1m = phase_fastpath(device, card, n1m, wall1m,
+                            head="[scale] dam1m fastpath:")
+    scale = [dam1m["launches"], dam1m_tc["launches"], dam2m["launches"],
+             blowup, scale_cli, fast1m]
+
+    origin = {k: "phase 5 + sharded phases + [scale]" for k in SOLVE_KERNELS}
     for k in SOLVE_KERNELS:
         launches[k] += fast[k] + ranks[k]
     launches["density_rho"] = rho + ranks["density_rho"]
-    origin["density_rho"] = "phase 7 + the two ranks' diagnostics"
+    origin["density_rho"] = ("phase 7 + the two ranks' diagnostics + "
+                             "[scale]'s diagnostics and runner")
     for k in TC_SOLVE_KERNELS:
         launches[k] = tc_main[k] + tc_settle[k] + tc_cli[k]
-        origin[k] = "phases 5-7"
+        origin[k] = "phases 5-7 + [scale] dam1m"
     for k in set(TC_FORMS) - set(TC_SOLVE_KERNELS):
         launches[k] = short[k]
         origin[k] = f"phase 5 ({SHORT_STEPS}-step rollout)"
+    for k in KERNELS:
+        launches[k] += sum(run[k] for run in scale)
     # no single PyTorch call computes a windowed neighbour sum, so no
     # kernel has a library time
     report = [
@@ -1366,7 +1763,10 @@ def main() -> int:
          f"bound_ms_step{SETTLED_STEP}": kern[k][6],
          "restricted_ms": restricted[k][0],
          "restricted_bound_ms": restricted[k][1],
-         "own_ms": {str(own): owns[own][k] for own in C2_OWNS}}
+         "own_ms": {str(own): owns[own][k] for own in C2_OWNS},
+         # the 1M dam break at step 60
+         "ms_1m": scale_kern[k][1], "bound_ms_1m": scale_kern[k][2],
+         "bound_by_1m": scale_kern[k][3], "max_abs_err_1m": scale_kern[k][0]}
         for k in KERNELS
     ]
     if any(r["launches"] <= 0 for r in report):

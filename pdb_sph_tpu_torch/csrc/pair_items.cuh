@@ -173,6 +173,13 @@ __device__ __forceinline__ void run_items(
   __shared__ int s_item;
   __shared__ int s_last;
 
+  // Every index below fits an int with room to spare at the largest scene
+  // the port runs (the 2M dam break: n_pad 2,000,000, 31,250 chunks): the
+  // nine ranges of a chunk are disjoint ranges of the sorted array, so its
+  // candidates, and each item's first candidate p0, stay under n_pad; a
+  // row c * own + row is under n_pad; the items are at most
+  // ITEMS_PER_CHUNK * chunks (500,000 there). Only the partials' row,
+  // item * own (up to 16 * n_pad), is taken in size_t.
   const int seg_len = *seg_len_p;
   const int items = seg_prefix[num_chunks];
   int* next_item = counters + num_chunks;
@@ -321,7 +328,8 @@ struct Launch {
 
 // Launch `kKernel` (a __global__ taking the Launch's arguments and `Args`)
 // on its persistent grid: SMs x resident blocks at `smem` bytes, asked once
-// per kernel.
+// per kernel. The grid depends on the card and the kernel, never on n: the
+// blocks take items until none is left, at any scene size.
 template <auto kKernel, class... Args>
 int launch_items(size_t smem, const Launch& a, Args... args) {
   static int grid = 0;

@@ -71,7 +71,8 @@ LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0,
             "project_tc_proj": 0, "project_tc_sum": 0,
             "project_tc_proj_sum": 0}
 
-# (own rows x candidates) pair elements per batch of the plain versions
+# (own rows x candidates) pair elements per batch of the plain versions: a
+# batch is a run of consecutive chunks padded to its longest one
 _REF_PAIRS_PER_BATCH = 1 << 22
 # work items the pair kernels' scratch holds, per own-chunk (a float4 per
 # own row of each: 16 KiB a chunk at own 64): a plan whose candidates would
@@ -334,6 +335,24 @@ def _cand_dot(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (s[..., None] * c[:, None, :, :]).sum(dim=2)
 
 
+def _chunk_batches(lens: list[int], own: int) -> list[tuple[int, int]]:
+    """[c0, c1) runs of consecutive chunks, each as long as its rows times
+    its longest chunk's candidates stay within _REF_PAIRS_PER_BATCH (a
+    chunk longer than that is a run of its own). Sized by each run's own
+    longest chunk, not the plan's: at 1M particles one heavy chunk would
+    otherwise cut every batch to a few chunks."""
+    runs, c0, longest = [], 0, 1
+    for c, length in enumerate(lens):
+        wider = max(longest, length)
+        if c > c0 and (c + 1 - c0) * own * wider > _REF_PAIRS_PER_BATCH:
+            runs.append((c0, c))
+            c0, wider = c, max(length, 1)
+        longest = wider
+    if lens:
+        runs.append((c0, len(lens)))
+    return runs
+
+
 def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
                  split_rd2: bool = False):
     """Yield (row0, own (b, own, 4), (dx, dy, dz) or None, rd2 clamped,
@@ -345,16 +364,13 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     :563-568), (|o|^2 - (dot + dot)) + |c|^2 with `dot3` of the bf16 splits,
     and no deltas are yielded."""
     own = cfg.geom.own
-    num_chunks = plan.ranges.shape[0]
-    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
-    longest = max(int(lens.max()), 1)
-    batch = max(1, _REF_PAIRS_PER_BATCH // (own * longest))
+    stop = min(plan.ranges.shape[0], -(-n // own))
+    lens = (plan.ranges[:stop, :, 1] - plan.ranges[:stop, :, 0]).sum(dim=1)
     # fmin/fmax, not clamp: a NaN rd2 becomes h^2 and adds nothing, as the
     # kernels' fminf/fmaxf make it
     h2 = p4.new_full((), f32(cfg.h2))
     eps = p4.new_full((), f32(EPS))
-    for c0 in range(0, min(num_chunks, -(-n // own)), batch):
-        c1 = min(c0 + batch, num_chunks)
+    for c0, c1 in _chunk_batches(lens.tolist(), own):
         mine = p4[c0 * own:c1 * own].view(c1 - c0, own, 4)
         idx, mask = _candidates(plan.ranges[c0:c1])
         cand = p4[idx]

@@ -104,6 +104,39 @@ def test_resume_continues_a_jax_checkpoint(tmp_path, jax_run):
     assert int(checkpoint.load(ck, device="cpu")[1].step) == 10
 
 
+def test_run_at_a_scaled_wall_and_its_resume(tmp_path):
+    """The README's 1M command (`--wall 4.64 --grid-width 29`) at n = 2048
+    on the CPU, with frames, a GIF and a checkpoint, then a resume that
+    ends on a partial chunk: rc 0, every record's counters 0."""
+    ck, m1, m2 = (str(tmp_path / f) for f in ("ck.npz", "m1", "m2"))
+    assert cli.main(["--scene", "dam_break", "--n", "2048", "--wall", "4.64",
+                     "--grid-width", "29", "--steps", "4", "--chunk", "2",
+                     "--metrics-every", "2", "--render-every", "2",
+                     "--width", "64", "--height", "48", "--out",
+                     str(tmp_path / "fr"), "--gif", str(tmp_path / "a.gif"),
+                     "--checkpoint", ck, "--device", "cpu",
+                     "--metrics", m1]) == 0
+    cfg, state = checkpoint.load(ck, device="cpu")
+    assert (cfg.n, cfg.wall, cfg.grid_width, cfg.nb_grid_width) == (
+        2048, 4.64, 29, 51)
+    assert ((state.x >= 0) & (state.x <= 4.64)).all()
+    assert sorted(os.listdir(tmp_path / "fr")) == [
+        "frame_000000.png", "frame_000002.png", "frame_000004.png"]
+    assert open(tmp_path / "a.gif", "rb").read(6) == b"GIF89a"
+    assert cli.main(["--resume", ck, "--steps", "3", "--chunk", "2",
+                     "--metrics-every", "2", "--device", "cpu",
+                     "--metrics", m2, "--checkpoint", ck]) == 0
+    run, resumed = _lines(m1), _lines(m2)
+    assert [r["step"] for r in resumed if r["event"] == "progress"] == [6, 7]
+    prog = [r for r in run + resumed if r["event"] == "progress"]
+    assert all(r["n_overflow"] == r["plan_overflow"] == 0
+               and not r["nan_detected"] and r.get("n_escaped", 0) == 0
+               for r in prog)
+    assert sum("mean_density" in r for r in prog) == 3
+    assert run[-1]["event"] == resumed[-1]["event"] == "done"
+    assert int(checkpoint.load(ck, device="cpu")[1].step) == 7
+
+
 def test_nan_checkpoint_aborts_with_rc2(tmp_path):
     cfg = default_config(n=256)
     state = spawn(cfg, "standard", seed=0, device="cpu")
