@@ -45,8 +45,9 @@ exits non-zero:
                refuses two ranks on one card), against the Stepper at step 3, by the
                population discriminator at step 23 and by their density
                diagnostics at steps 3, 23 and 243; and the cell backend at 80k
-               against the window backend, then on a table that overflows
-               (the runner exits 2);
+               against the window backend, its one-rank sharded rollout (a
+               graph) bitwise the eager loop, then on a table that
+               overflows (the runner exits 2);
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
                steps must come to rest (mean dense rho within 5 % of rho0,
                max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN),
@@ -78,6 +79,24 @@ exits non-zero:
                then its resume to step 100; and the one-rank sharded fast
                path at 1M.
 
+On a machine with four cards, `python3 chip_smoke.py --ranks 4` runs
+phases 1-2, then only the [nccl] phases: the sharded rollout on NCCL ranks,
+one card each, a CUDA graph whose collectives replay with it, at the JAX
+package's multi-device configuration (benchmarks/bench_multichip.py:62-70,
+the 1M dam break). It exits non-zero when torch sees fewer cards. The nine
+forms against their plain versions on rank 1 of D = 4's restricted plans
+of that row; for D = 2 and D = 4, through launch.rollout_ranks: 3 steps
+against the single-card Stepper, the population at step 23 and the mean
+density at steps 3, 23 and 243; then 240 graph steps bitwise 240 eager
+ShardedStepper steps; 20 graph steps under set_sync_debug_mode("error");
+eager and graph steps/s in turns; 20 steps of each profiled on every rank
+behind a barrier (busy share, device ms a step, the NCCL kernels' share);
+the line of bench_multichip.py's fields, also for D = 1.
+At D = 4 also: the 2M dam break (wall 5.85), every tensor-core switch,
+the cell backend at 80k against the window backend, and the runner on four
+cards with frames, GIF and checkpoint, then its resume; each rank of the
+runner captures one graph and allocates one pair-kernel scratch.
+
 Every path (phases 5, 6 and 7's runs, the sharded rollouts, phase 8's
 rollouts and runs) is driven with the kernel launch counts set to 0 just before it and read just after;
 the two ranks count in their own processes and report their counts. A
@@ -106,6 +125,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -234,6 +254,11 @@ SHARD_RTOL, SHARD_ATOL = 1e-4, 2e-5
 # particles, the order of the sums a few percent of all
 POP_STEPS = 20
 POP_MAX_DEV, POP_TOL, POP_FRAC = 5e-2, 2e-5, 0.05
+# the chunks of a multi-rank run against the Stepper, on gloo and on NCCL:
+# they end at steps 3, 23 (the population) and 243
+RANK_CHUNKS = (SHARD_STEPS, POP_STEPS, SHARD_ROLLOUT - POP_STEPS)
+RANK_MARKS = (SHARD_STEPS, SHARD_STEPS + POP_STEPS,
+              SHARD_STEPS + SHARD_ROLLOUT)
 # past it the order of the sums alone spreads every trajectory, so the
 # ranks are held by their density diagnostics against the single device's:
 # mean rho within this share. A particle within h of the slab boundary
@@ -270,6 +295,29 @@ DENSE_RHO_RTOL = 1e-4
 # the runner at 1M as the README's command (--grid-width 29), then a resume
 # to step 100 in chunks of SCALE_CLI_CHUNK, the last one partial
 SCALE_CLI_STEPS, SCALE_CLI_RESUME, SCALE_CLI_CHUNK = 60, 40, 30
+# [nccl] (--ranks): the JAX package's multi-device configuration
+# (benchmarks/bench_multichip.py:62-70), not cut: the 1M dam break in the
+# box of its number density, grid_width 40, a cell table of 4096 x 256, seed
+# 0; the 2M row beside it at D = 4. row -> (n, wall)
+NCCL_ROWS = {"dam1m": (1_000_000, 4.64), "dam2m": (2_000_000, 5.85)}
+NCCL_TABLE = dict(grid_width=40, max_occupied_cells=4096, cell_capacity=256)
+NCCL_DS = (2, 4)
+# after the correctness chunks (RANK_CHUNKS), from their last step: graph
+# vs eager over NCCL_STEPS steps each, the rates in turns, NCCL_SYNC_STEPS
+# graph steps under the sync-debug mode
+NCCL_STEPS, NCCL_SYNC_STEPS, NCCL_PROFILE_STEPS = 240, 20, 20
+# the restricted plans at the row's size: this rank of D = 4, whose band has
+# ghosts on both sides
+NCCL_RESTRICTED_RANK = 1
+# every switch at D = 4: rollouts of this many steps from the spawn, in the
+# default geometry, with every switch, and in the one-switch geometries
+NCCL_SWITCH_STEPS = 40
+# the runner on the cards: steps and record cadence, then a resume ending
+# on a partial chunk
+NCCL_CLI_STEPS, NCCL_CLI_EVERY, NCCL_CLI_RESUME, NCCL_CLI_CHUNK = \
+    60, 20, 40, 30
+# where each rank of the runner leaves what it counted
+RANK_COUNTS_ENV = "CHIP_SMOKE_RANK_COUNTS"
 
 
 def phase_device() -> str:
@@ -277,8 +325,14 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    print(card)
+    cards = smi.splitlines()
+    print("\n".join(cards))
+    if len(cards) == 1:
+        card = cards[0]
+    elif len(set(cards)) == 1:
+        card = f"{len(cards)} x {cards[0]}"
+    else:
+        card = "; ".join(cards)
     from pdb_sph_tpu_torch.utils.cuda_build import find_nvcc
 
     nvcc = subprocess.run(
@@ -1181,32 +1235,37 @@ def phase_c2(device, state60, n: int = N_MAIN) -> dict:
     return out
 
 
-def phase_restricted(device, state60, n: int = N_MAIN) -> dict:
-    """The nine forms on restricted plans, as rank 0 of D = 2 sees them:
-    the sorted step-60 state with the chunks outside its key band masked
-    (own keys plus one ring for the density forms, own keys for the
+def phase_restricted(device, state60, cfg=None, D: int = 2, rank: int = 0,
+                     head: str = "[kernels]") -> dict:
+    """The nine forms on restricted plans, as rank `rank` of D sees them
+    (default: rank 0 of D = 2 on the flagship dam break): the sorted
+    step-60 state of `cfg` with the chunks outside the rank's key band
+    masked (own keys plus one ring for the density forms, own keys for the
     project forms). Returns {counter: (ms, bound ms, bound by)}."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.core.step import sort_cells
     from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
     from pdb_sph_tpu_torch.parallel import sharded
 
-    cfg = pbf.default_config(n=n)
-    b = sharded.initial_bounds(cfg, 2, state=state60)
+    cfg = cfg or pbf.default_config(n=N_MAIN)
+    n = cfg.n
+    b = sharded.initial_bounds(cfg, D, state=state60)
     p4, plan = _sorted_p4(cfg, state60.x)
     sorted_cid, _ = sort_cells(cfg, hashgrid.cell_ids(cfg, state60.x))
-    keep_d, keep_p = sharded.chunk_keep(cfg, sorted_cid, int(b[0]),
-                                        int(b[1]))
+    keep_d, keep_p = sharded.chunk_keep(cfg, sorted_cid, int(b[rank]),
+                                        int(b[rank + 1]))
     plan_d = cuda_pbf.restrict_plan(cfg, plan, keep_d)
     plan_p = cuda_pbf.restrict_plan(cfg, plan, keep_p)
-    print(f"[restricted] rank 0 of 2, zx-keys [{b[0]}, {b[1]}): "
-          f"{int(keep_d.sum())} of {keep_d.numel()} chunks kept for the "
-          f"density forms, {int(keep_p.sum())} for the project forms")
+    print(f"{head} restricted: rank {rank} of {D}, n={n} wall={cfg.wall} "
+          f"grid_width {cfg.grid_width}, zx-keys [{b[rank]}, "
+          f"{b[rank + 1]}): {int(keep_d.sum())} of {keep_d.numel()} chunks "
+          f"kept for the density forms, {int(keep_p.sum())} for the project "
+          "forms")
     tag = " restricted:"
     fp, d_k = _fp32_kernels(cfg, p4, plan_d, n, SETTLE_STEPS, 0,
-                            plan_p=plan_p, tag=tag)
+                            plan_p=plan_p, tag=tag, head=head)
     fp.update(_tc_kernels(cfg, p4, d_k, plan_d, n, SETTLE_STEPS, 0,
-                          plan_p=plan_p, tag=tag))
+                          plan_p=plan_p, tag=tag, head=head))
     return {k: (v[1], v[3], v[4]) for k, v in fp.items()}
 
 
@@ -1301,38 +1360,64 @@ def _population(x, ref) -> tuple[float, float]:
     return float(dev.max()), float((dev > POP_TOL).float().mean())
 
 
-def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
-    """D = 2 as two gloo ranks sharing the card, each with its kernels on
-    the card on restricted plans, the exchange staged through pinned host
-    memory. Against the single-device Stepper: SHARD_STEPS steps at the
-    parity tolerances; the population discriminator of __graft_entry__.py
-    at its horizon (step SHARD_STEPS + POP_STEPS), the last check of
-    positions, since past it the order of the sums alone spreads every
-    trajectory; and after each chunk, up to the end of the SHARD_ROLLOUT-
-    step rollout, the ranks' density diagnostics (K1 rho over each rank's
-    particles and ghosts): their mean against the single device's
-    diagnostics_fn.
-    Stats: no overflow, every particle, no NaN, in every chunk. Returns
-    the ranks' summed launches."""
+def _stepper_refs(device, cfg, marks, keep: int | None = None):
+    """The single-device Stepper's reference at each of `marks`: the
+    positions in id order and the diagnostics' mean and max density; and a
+    copy of the state at step `keep` (None when `keep` is None)."""
     import pdb_sph_tpu_torch as pbf
-    from pdb_sph_tpu_torch.parallel import launch
 
-    cfg = pbf.default_config(n=n)
-    st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
-    chunks = [SHARD_STEPS, POP_STEPS, SHARD_ROLLOUT - POP_STEPS]
-    marks = [sum(chunks[:i + 1]) for i in range(len(chunks))]
     stepper = pbf.make_step(cfg, "window", device=device)
-    ref, refs = st, {}
+    ref, refs, kept = pbf.spawn(cfg, "dam_break", seed=0, device=device), \
+        {}, None
     for i in range(1, marks[-1] + 1):
         ref = stepper(ref)
+        if i == keep:
+            kept = type(ref)(*(t.clone() if torch.is_tensor(t) else t
+                               for t in ref))
         if i in marks:
-            d = pbf.diagnostics_fn(cfg, ref)
+            d = pbf.diagnostics_fn(cfg, ref, stepper.scratch)
             refs[i] = (_unsorted_x(ref).cpu(), float(d.mean_density),
                        float(d.max_density_err))
+    return refs, kept
+
+
+def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
+                    comm: str = "gloo", devices=None, refs=None,
+                    head: str = "[ranks]") -> dict:
+    """D ranks through launch.rollout_ranks, one rollout a rank, each with
+    its kernels on restricted plans: by default two gloo ranks sharing the
+    card at the flagship size, the exchange staged through pinned host
+    memory (an eager loop); with comm "nccl" and a card a rank in
+    `devices`, NCCL ranks whose rollout is a CUDA graph. Against the
+    single-device Stepper (`refs` of _stepper_refs, made here when None):
+    the first chunk's SHARD_STEPS steps at the parity tolerances; the
+    population discriminator of __graft_entry__.py at its horizon (step
+    SHARD_STEPS + POP_STEPS), the last check of positions, since past it
+    the order of the sums alone spreads every trajectory; and after each
+    chunk, up to the end of the SHARD_ROLLOUT-step rollout, the ranks'
+    density diagnostics (K1 rho over each rank's particles and ghosts):
+    their mean against the single device's diagnostics_fn.
+    Stats: no overflow, every particle, nothing escaped, no NaN, in every
+    chunk. Returns the ranks' summed launches."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.parallel import launch, sharded
+    from pdb_sph_tpu_torch.parallel.comm import Group
+
+    cfg = cfg or pbf.default_config(n=N_MAIN)
+    n = cfg.n
+    devices = list(devices or [str(device)] * D)
+    chunks, marks = list(RANK_CHUNKS), RANK_MARKS
+    if refs is None:
+        refs, _ = _stepper_refs(device, cfg, marks)
+    st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+    pcfg = sharded.ParallelConfig.create(cfg, D, state=st)
+    # a graph's first call adds its eager warm-up step
+    warm = WARMUP_STEPS * sharded.captures(torch.device(devices[0]),
+                                           Group(0, D, comm))
     t0 = time.perf_counter()
     got, ranks = launch.rollout_ranks(
-        cfg, st, 2, chunks, "window", devices=[str(device)] * 2,
-        comm="gloo", timeout_s=RANKS_TIMEOUT_S)
+        cfg, st, D, chunks, "window", devices=devices, comm=comm,
+        timeout_s=RANKS_TIMEOUT_S)
     secs = time.perf_counter() - t0
     err3 = float((got[0][0].x - refs[marks[0]][0]).abs().max())
     pop = _population(got[1][0].x, refs[marks[1]][0])
@@ -1343,7 +1428,12 @@ def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
                      float(dg[:, 1].max()), refs[m][1], refs[m][2]))
     roll_s = got[1][3] + got[2][3]
     launches = {k: sum(r[k] for r in ranks) for k in ranks[0]}
-    print(f"[ranks] D=2 gloo ranks sharing {card}, n={n}: step {marks[0]} "
+    where = (f"sharing {card}" if len(set(devices)) == 1
+             else f"one card each, {card}")
+    print(f"{head} D={D} {comm} ranks {where}, n={n} wall={cfg.wall} "
+          f"grid_width {cfg.grid_width}, capacities (slots, migration, "
+          f"ghosts) {[pcfg.capacity, pcfg.mig_capacity, pcfg.ghost_capacity]}"
+          f": step {marks[0]} "
           f"max|dx| vs Stepper {err3:.3e} (rtol {SHARD_RTOL:g}, atol "
           f"{SHARD_ATOL:g}); step {marks[1]} population vs Stepper: max dev "
           f"{pop[0]:.3e} (< {POP_MAX_DEV:g}), {100 * pop[1]:.2f} % of "
@@ -1352,47 +1442,47 @@ def phase_two_ranks(device, card: str, n: int = N_MAIN) -> dict:
           "vs the Stepper's: "
           + "; ".join(f"step {m} {a:.2f} vs {b:.2f}, {e:.4f} vs {f:.4f}"
                       for m, a, e, b, f in dens)
-          + f" (the means within {100 * DENS_MEAN_RTOL:g} %); "
-          f"{SHARD_ROLLOUT} steps in "
+          + f" (the means within {100 * DENS_MEAN_RTOL:g} %); first chunk "
+          f"({marks[0]} steps{', warm-up step and capture' if warm else ''})"
+          f" {got[0][3]:.4f} s; {SHARD_ROLLOUT} steps in "
           f"{roll_s:.4f} s = {SHARD_ROLLOUT / roll_s:.2f} steps/s (rank 0's "
           f"clock, fenced); stats by chunk "
-          f"{[g[1].tolist() for g in got]}; launches summed over ranks "
-          f"{ {k: v for k, v in launches.items() if v} }; {secs:.1f} s "
-          "with the ranks' start")
+          f"{[g[1].tolist() for g in got]}; launches a rank "
+          f"{[{k: v for k, v in r.items() if v} for r in ranks]}; {secs:.1f}"
+          " s with the ranks' start")
     torch.testing.assert_close(got[0][0].x, refs[marks[0]][0],
                                rtol=SHARD_RTOL, atol=SHARD_ATOL)
     for _, s, d, _, dg in got:
-        if (s[:, 1:].sum() or int(s[:, 0].sum()) != n or d[:, 2].sum()
+        if (s[:, 1:].sum() or int(s[:, 0].sum()) != n or d[:, 1:].sum()
                 or dg[:, 4].sum()):
-            raise AssertionError(f"two-rank stats are wrong: {s.tolist()}, "
-                                 f"{d.tolist()}, {dg.tolist()}")
+            raise AssertionError(f"{head} D={D} stats are wrong: "
+                                 f"{s.tolist()}, {d.tolist()}, {dg.tolist()}")
     if not (pop[0] < POP_MAX_DEV and pop[1] < POP_FRAC):
-        raise AssertionError(f"two-rank population differs from the single "
-                             f"device at step {marks[1]}")
+        raise AssertionError(f"{head} D={D}: population differs from the "
+                             f"single device at step {marks[1]}")
     for m, a, _, b, _ in dens:
         if not abs(a - b) <= DENS_MEAN_RTOL * b:
-            raise AssertionError(f"two-rank mean density at step {m} "
+            raise AssertionError(f"{head} D={D}: mean density at step {m} "
                                  "differs from the single device's")
-    want = 2 * 3 * marks[-1]
-    if launches["density_lambda"] != want or launches["project"] != want:
-        raise AssertionError(f"expected {want} solve launches: {launches}")
-    if launches["density_rho"] != 2 * len(chunks):
-        raise AssertionError(f"expected {2 * len(chunks)} diagnostic rho "
-                             f"launches: {launches}")
+    for r in ranks:
+        _check_launches(f"{head} D={D}", r, SOLVE_KERNELS,
+                        3 * (marks[-1] + warm), rho=len(chunks))
     return launches
 
 
 def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     """The cell backend at the flagship size: CELL_STEPS steps against the
-    window backend, with a table sized so nothing overflows; then a table
-    with a third of the rows, whose drops table_overflow counts and on
-    which the runner exits 2."""
+    window backend, with a table sized so nothing overflows; the one-rank
+    sharded rollout on it, a graph, bitwise the eager ShardedStepper loop
+    over CELL_STEPS steps; then a table with a third of the rows, whose
+    drops table_overflow counts and on which the runner exits 2."""
     import dataclasses
 
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch import cli
     from pdb_sph_tpu_torch.io import checkpoint
     from pdb_sph_tpu_torch.ops import hashgrid
+    from pdb_sph_tpu_torch.parallel import sharded
     from pdb_sph_tpu_torch.utils.timing import fence
 
     cfg0 = pbf.default_config(n=n)
@@ -1431,6 +1521,23 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
           f"cell_capacity {cap}; {CELL_STEPS} steps, each from the window "
           f"backend's state, in {secs:.3f} s, stats [0, 0, 0]; max|dx| vs "
           f"window {err:.3e} (rtol {ORACLE_RTOL:g}, atol {ORACLE_ATOL:g})")
+
+    pcfg = sharded.ParallelConfig.create(cfg, 1, state=st)
+    sst = sharded.distribute(cfg, pcfg, st, device=device)
+    roll = sharded.make_sharded_rollout(cfg, pcfg, None, "cell", CELL_STEPS,
+                                        device)
+    got, stats, diag = roll(sst)
+    want, w_stats, w_diag = _eager_sharded(roll.stepper, sst, CELL_STEPS)
+    same = (all(torch.equal(a, b) for a, b in zip(got, want))
+            and torch.equal(stats, w_stats) and torch.equal(diag, w_diag))
+    print(f"[cell] one-rank sharded rollout: graph {roll.graphed}; "
+          f"{CELL_STEPS} steps bitwise the eager ShardedStepper loop: {same};"
+          f" stats {stats.tolist()}, diag {diag.tolist()}")
+    if not roll.graphed or not same or stats[:, 1:].any() \
+            or diag[:, 1:].any():
+        raise AssertionError("the one-rank cell rollout is not a graph, or "
+                             "left the eager loop's bits")
+    del roll, got, want
 
     small = dataclasses.replace(cfg, max_occupied_cells=occ // 3)
     _, stats = pbf.make_step(small, "cell", device=device).step(
@@ -1667,13 +1774,662 @@ def phase_scale_cli(device, out_dir: str, row: str = "dam1m") -> dict:
     return {k: l_run[k] + l_res[k] for k in l_run}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# [nccl] (--ranks N): the sharded rollout on NCCL ranks, one card each. The
+# rank functions live at module level: a spawned rank imports this script
+# again to find them.
+# ---------------------------------------------------------------------------
+
+def _nccl_cfg(n: int, wall: float):
+    import pdb_sph_tpu_torch as pbf
+
+    return pbf.default_config(n=n, wall=wall, **NCCL_TABLE)
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _eager_sharded(stepper, sst, steps: int):
+    """`steps` eager ShardedStepper.step calls from `sst`, aggregated as
+    the rollout does and gathered: the loop the graph is held against."""
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    acc = (torch.zeros((5,), dtype=torch.int32, device=sst.x.device),
+           torch.zeros((3,), dtype=torch.float32, device=sst.x.device))
+    for _ in range(steps):
+        sst, stats, diag = stepper.step(sst)
+        sharded._aggregate(acc, stats, diag)
+    return (sst, *stepper.gather(*acc))
+
+
+def _nccl_profile(run, steps: int, trace: str, group=None,
+                  device=None) -> dict:
+    """`run()` (`steps` steps) under torch.profiler: busy share, device ms
+    a step, and of them the NCCL kernels' and the pair kernels' ms. With a
+    group, every rank's profiler is running before a barrier (one
+    all_gather, then a fence) lines the ranks up, and the window read
+    opens after it: the NCCL kernels' ms is then what the step's exchange
+    waits, not another rank's late start."""
+    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+
+    def barrier():
+        fence(device)
+        group.all_gather(torch.zeros((1,), device=device))
+        fence(device)
+
+    r = profile_kernels(run, trace, None if group is None else barrier)
+    if not r["kernels"]:
+        return {"kernels": 0}
+    nccl = sum(ms for name, _, ms in r["by_name"] if "nccl" in name.lower())
+    pair = sum(ms for name, _, ms in r["by_name"]
+               if any(k in name for k in PAIR_KERNEL_NAMES))
+    return {"kernels": r["kernels"] / steps, "busy": r["busy_share"],
+            "span_ms": r["span_ms"] / steps, "ms": r["kernel_ms"] / steps,
+            "nccl_ms": nccl / steps, "pair_ms": pair / steps}
+
+
+def _weighted_density(stats: torch.Tensor, dens: torch.Tensor) -> float:
+    """The ranks' mean rho weighted by their particles, as the runner
+    weighs them."""
+    w = stats[:, 0].double().clamp_min(1)
+    return float((dens[:, 0].double() * w).sum() / w.sum())
+
+
+def _rank_window(job: dict, group, device):
+    """(cfg, pcfg, the spawn distributed on this rank) of a job's row."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    cfg = _nccl_cfg(job["n"], job["wall"])
+    state = pbf.spawn(cfg, "dam_break", seed=0, device="cpu")
+    pcfg = sharded.ParallelConfig.create(cfg, group.size, state=state)
+    return cfg, pcfg, sharded.distribute(cfg, pcfg, state, group, device)
+
+
+def _nccl_main(group, device, job: dict, res: dict) -> None:
+    """Graph against eager on the job's row, from the state after the
+    rollout's first chunk (its warm-up step and capture): bitwise, under
+    the sync-debug mode, the rates in turns, the profiles, and
+    bench_multichip's fields."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    r, D = group.rank, group.size
+    cfg, pcfg, sst0 = _rank_window(job, group, device)
+    roll = sharded.make_sharded_rollout(cfg, pcfg, group, "window", 1,
+                                        device)
+    if not roll.graphed:
+        raise AssertionError("the NCCL ranks' ShardedRollout is not a graph")
+    diag = sharded.make_sharded_diagnostics(cfg, pcfg, group, "window",
+                                            roll.stepper.work.scratch)
+    base, _, _ = roll(sst0, job["start"])
+
+    steps = job["steps"]
+    cuda_pbf.reset_launches()
+    g, gs, gd = roll(base, steps)
+    res["graph_launches"] = _nonzero(cuda_pbf.LAUNCHES)
+    e, es, ed = _eager_sharded(roll.stepper, base, steps)
+    same = {f: torch.equal(a, b) for f, a, b in zip(g._fields, g, e)}
+    same.update(stats=torch.equal(gs, es), diag=torch.equal(gd, ed))
+    cg, ce = sharded.collect(g, group), sharded.collect(e, group)
+    same["collected"] = all(torch.equal(a, b) for a, b in zip(cg[:3], ce[:3]))
+    res["bitwise"] = same
+    del e, cg, ce
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        roll(base, job["sync_steps"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(device)
+
+    runs = {"eager": lambda k: _eager_sharded(roll.stepper, base, k),
+            "graph": lambda k: roll(base, k)}
+    rates = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        fence(device)
+        t0 = time.perf_counter()
+        runs[mode](steps)
+        fence(device)
+        rates[mode].append(steps / (time.perf_counter() - t0))
+    res["rates"] = rates
+    k = job["profile_steps"]
+    res["profile"] = {
+        mode: _nccl_profile(lambda run=run: run(k), k, os.path.join(
+            job["trace_dir"], f"nccl_{job['row']}_d{D}_{mode}_rank{r}.json"),
+            group, device)
+        for mode, run in runs.items()}
+    dens = diag(g)
+    res["bench"] = {
+        "step": job["start"] + steps,
+        "per_shard_active": gs[:, 0].tolist(),
+        "overflows": gs[:, 1:].sum(dim=0).tolist(),
+        "max_speed": float(gd[:, 0].max()),
+        "n_escaped": int(gd[:, 1].sum()), "nan": int(gd[:, 2].sum()),
+        "mean_density": _weighted_density(gs, dens),
+        "max_density_err": float(dens[:, 1].max()),
+        "slab_bounds": g.bounds[1:].tolist()}
+
+
+def _nccl_switches(group, device, job: dict, res: dict) -> None:
+    """NCCL_SWITCH_STEPS steps from the spawn in the default geometry and
+    in each tensor-core geometry, each on its own rollout."""
+    import dataclasses
+
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    cfg, pcfg, sst0 = _rank_window(job, group, device)
+    out = {}
+    for switches in ({}, ALL_SWITCHES, *ONE_SWITCH_GEOMS):
+        gcfg = dataclasses.replace(cfg, geom=KernelGeometry(**switches))
+        roll = sharded.make_sharded_rollout(gcfg, pcfg, group, "window", 1,
+                                            device)
+        cuda_pbf.reset_launches()
+        s, stats, sdiag = roll(sst0, job["switch_steps"])
+        launches = _nonzero(cuda_pbf.LAUNCHES)
+        dens = sharded.make_sharded_diagnostics(
+            gcfg, pcfg, group, "window", roll.stepper.work.scratch)(s)
+        out[_geom_name(gcfg.geom)] = {
+            "switches": switches, "launches": launches,
+            "stats": stats.tolist(), "diag": sdiag.tolist(),
+            "mean_density": _weighted_density(stats, dens),
+            "max_speed": float(sdiag[:, 0].max())}
+        del roll, s
+        torch.cuda.empty_cache()
+    res["switches"] = out
+
+
+def _nccl_large(group, device, job: dict, res: dict) -> None:
+    """The large row: one settle chunk (its first call warms up and
+    captures), SCALE_STEPS graph steps timed, NCCL_PROFILE_STEPS profiled;
+    stats over every step, the box, the peak memory of this rank."""
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg, pcfg, sst = _rank_window(job, group, device)
+    roll = sharded.make_sharded_rollout(cfg, pcfg, group, "window", 1,
+                                        device)
+    fence(device)
+    t0 = time.perf_counter()
+    sst, s1, d1 = roll(sst, job["settle"])
+    fence(device)
+    settle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sst, s2, d2 = roll(sst, job["steps"])
+    fence(device)
+    secs = time.perf_counter() - t0
+    k = job["profile_steps"]
+    prof = _nccl_profile(lambda: roll(sst, k), k, os.path.join(
+        job["trace_dir"], f"nccl_{job['row']}_d{group.size}_rank"
+                          f"{group.rank}.json"), group, device)
+    dens = sharded.make_sharded_diagnostics(
+        cfg, pcfg, group, "window", roll.stepper.work.scratch)(sst)
+    st = sharded.collect(sst, group)
+    fence(device)
+    res["large"] = {
+        "settle_s": settle_s, "secs": secs, "profile": prof,
+        "stats": [s1.tolist(), s2.tolist()],
+        "max_speed": float(torch.maximum(d1, d2)[:, 0].max()),
+        "n_escaped": int((d1 + d2)[:, 1].sum()),
+        "nan": int((d1 + d2)[:, 2].sum()),
+        "finite": bool(torch.isfinite(st.x).all()
+                       and torch.isfinite(st.v).all()),
+        "in_box": _in_box(st.x, cfg.wall), "n": int(st.x.shape[0]),
+        "mean_density": _weighted_density(s2, dens),
+        "max_density_err": float(dens[:, 1].max()),
+        "slab_bounds": sst.bounds[1:].tolist(),
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+
+
+def _nccl_cell(group, device, job: dict, res: dict) -> None:
+    """The cell backend against the window backend, each step from the
+    window backend's state (phase_cell's method), both as graphs."""
+    import dataclasses
+
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    cfg = dataclasses.replace(pbf.default_config(n=job["n"]),
+                              **job["table"])
+    state = pbf.spawn(cfg, "dam_break", seed=0, device="cpu")
+    pcfg = sharded.ParallelConfig.create(cfg, group.size, state=state)
+    b = sharded.distribute(cfg, pcfg, state, group, device)
+    win, cell = (sharded.make_sharded_rollout(cfg, pcfg, group, backend, 1,
+                                              device)
+                 for backend in ("window", "cell"))
+    errs, stats, secs = [], [], []
+    for _ in range(job["steps"]):
+        fence(device)
+        t0 = time.perf_counter()
+        a, s, _ = cell(b, 1)
+        fence(device)
+        secs.append(time.perf_counter() - t0)
+        b, _, _ = win(b, 1)
+        xa, xb = (sharded.collect(t, group).x for t in (a, b))
+        bad = ~torch.isclose(xa, xb, rtol=ORACLE_RTOL, atol=ORACLE_ATOL)
+        errs.append([float((xa - xb).abs().max()), int(bad.sum())])
+        stats.append(s.tolist())
+    res["cell"] = {"graphed": [win.graphed, cell.graphed], "errs": errs,
+                   "stats": stats, "secs": secs}
+
+
+def _nccl_rank(group, device, workdir: str, job: dict) -> None:
+    """One NCCL rank of an [nccl] run: the parts `job` names, then this
+    rank's results in rank{r}.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res: dict = {"card": torch.cuda.get_device_name(device)}
+    _nccl_main(group, device, job, res)
+    if "switch_steps" in job:
+        _nccl_switches(group, device, job, res)
+    if "large" in job:
+        _nccl_large(group, device, job["large"], res)
+    if "cell" in job:
+        _nccl_cell(group, device, job["cell"], res)
+    with open(os.path.join(workdir, f"rank{group.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _counted_mesh_rank(group, device, workdir, *job) -> None:
+    """A rank of the sharded runner (cli._mesh_rank) that counts its graph
+    captures and pair-kernel scratches and leaves them, with its kernel
+    launches, in the directory RANK_COUNTS_ENV names."""
+    from pdb_sph_tpu_torch import cli
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    with _counting(cuda_pbf, "alloc_scratch") as scratches, \
+            _counting(torch.cuda.CUDAGraph, "capture_begin") as captures:
+        cli._mesh_rank(group, device, workdir, *job)
+    with open(os.path.join(os.environ[RANK_COUNTS_ENV],
+                           f"rank{group.rank}.json"), "w") as f:
+        json.dump({"captures": captures[0], "scratches": scratches[0],
+                   "launches": cuda_pbf.LAUNCHES}, f)
+
+
+def _bench_line(row: str, D: int, n: int, rate: float, bench: dict) -> str:
+    """bench_multichip.py's fields (benchmarks/bench_multichip.py:114-127)
+    of one run of the row on D cards."""
+    act = bench["per_shard_active"]
+    return json.dumps({
+        "metric": f"particle_steps_per_sec_{n}_dam_break_{D}dev",
+        "value": rate * n, "unit": "particle-steps/s", "steps_per_sec": rate,
+        "devices": D, "per_shard_active": act,
+        "balance_min_over_mean": min(act) / (sum(act) / len(act)),
+        "overflows": bench["overflows"], "max_speed": bench["max_speed"],
+        "n_escaped": bench["n_escaped"],
+        "max_density_err": bench["max_density_err"],
+        "slab_bounds": bench["slab_bounds"]})
+
+
+def phase_nccl_single(device, card: str, out_dir: str) -> dict:
+    """The row on one card, the one-rank fast path as a graph: the
+    correctness marks' steps, then NCCL_STEPS graph steps timed twice and
+    NCCL_PROFILE_STEPS profiled; bench_multichip.py's line for D = 1."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    n, wall = NCCL_ROWS["dam1m"]
+    cfg = _nccl_cfg(n, wall)
+    st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+    pcfg = sharded.ParallelConfig.create(cfg, 1, state=st)
+    roll = sharded.make_sharded_rollout(cfg, pcfg, None, "window", 1, device)
+    start = RANK_MARKS[-1]
+    sst, _, _ = roll(sharded.distribute(cfg, pcfg, st, device=device), start)
+    rates = []
+    for _ in range(2):
+        fence(device)
+        t0 = time.perf_counter()
+        g, gs, gd = roll(sst, NCCL_STEPS)
+        fence(device)
+        rates.append(NCCL_STEPS / (time.perf_counter() - t0))
+    prof = _nccl_profile(lambda: roll(sst, NCCL_PROFILE_STEPS),
+                         NCCL_PROFILE_STEPS,
+                         os.path.join(out_dir, "nccl_dam1m_d1.json"))
+    dens = sharded.make_sharded_diagnostics(
+        cfg, pcfg, scratch=roll.stepper.work.scratch)(g)
+    bench = {"per_shard_active": gs[:, 0].tolist(),
+             "overflows": gs[:, 1:].sum(dim=0).tolist(),
+             "max_speed": float(gd[:, 0].max()),
+             "n_escaped": int(gd[:, 1].sum()),
+             "max_density_err": float(dens[:, 1].max()),
+             "slab_bounds": g.bounds[1:].tolist()}
+    rate = statistics.median(rates)
+    print(f"[nccl] dam1m D=1 (the one-rank fast path, a graph) on {card}: "
+          f"graph {rates[0]:.2f}, {rates[1]:.2f} steps/s over {NCCL_STEPS} "
+          f"steps from step {start}; {_nccl_prof_txt(prof)}")
+    print(f"[nccl] bench_multichip line D=1: "
+          f"{_bench_line('dam1m', 1, n, rate, bench)}")
+    if gs[:, 1:].any() or gd[:, 1:].any():
+        raise AssertionError(f"dam1m D=1: stats {gs.tolist()} {gd.tolist()}")
+    return {"rate": rate, "profile": prof}
+
+
+def _nccl_prof_txt(p: dict) -> str:
+    if not p.get("kernels"):
+        return "the profiler saw no kernels (not measured)"
+    return (f"profiled: busy {100 * p['busy']:.1f} %, {p['ms']:.4f} device "
+            f"ms a step (span {p['span_ms']:.4f} ms), of which NCCL "
+            f"{p['nccl_ms']:.4f} ms and the pair kernels {p['pair_ms']:.4f} "
+            f"ms, {p['kernels']:.1f} kernels a step")
+
+
+def _nccl_run(D: int, job: dict, timeout_s: float = RANKS_TIMEOUT_S):
+    """`job` on D NCCL ranks, cards 0 .. D-1: each rank's results and the
+    seconds from the start of the ranks to their end."""
+    from pdb_sph_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory(prefix="nccl_") as workdir:
+        t0 = time.perf_counter()
+        launch.run(_nccl_rank, D, [f"cuda:{r}" for r in range(D)],
+                   comm="nccl", timeout_s=timeout_s, workdir=workdir,
+                   args=(job,))
+        secs = time.perf_counter() - t0
+        ranks = []
+        for r in range(D):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, secs
+
+
+def _check_launches(tag: str, launches: dict, expect: tuple, want: int,
+                    rho: int = 0) -> None:
+    """Raise unless `expect`'s kernels launched `want` times each, the rho
+    kernel `rho` times and nothing else."""
+    got = _nonzero(launches)
+    need = {**dict.fromkeys(expect, want), **({"density_rho": rho}
+                                                if rho else {})}
+    if got != need:
+        raise AssertionError(f"{tag}: launches {got}, expected {need}")
+
+
+def phase_nccl(card: str, D: int, out_dir: str,
+               extra: dict | None = None) -> list[dict]:
+    """The row on D NCCL ranks, one card each, after phase_two_ranks has
+    held them against the Stepper: the graph bitwise the eager loop, the
+    sync-debug steps, the rates and every rank's profiles,
+    bench_multichip's line; `extra` adds the D = 4 parts. Returns the
+    ranks' results."""
+    n, wall = NCCL_ROWS["dam1m"]
+    start = RANK_MARKS[-1]
+    job = {"row": "dam1m", "n": n, "wall": wall, "start": start,
+           "steps": NCCL_STEPS, "sync_steps": NCCL_SYNC_STEPS,
+           "profile_steps": NCCL_PROFILE_STEPS, "trace_dir": out_dir,
+           **(extra or {})}
+    ranks, secs = _nccl_run(D, job)
+    r0 = ranks[0]
+    head = f"[nccl] dam1m D={D}"
+    rates = r0["rates"]
+    print(f"{head}: {NCCL_STEPS} graph steps vs {NCCL_STEPS} eager "
+          f"ShardedStepper steps from step {start}, bitwise equal "
+          f"on every rank: {[r['bitwise'] for r in ranks]}; "
+          f"{NCCL_SYNC_STEPS} graph steps under set_sync_debug_mode('error') "
+          f"on every rank without a sync; steps/s (rank 0's clock, fenced) "
+          f"eager {rates['eager'][0]:.2f}, graph {rates['graph'][0]:.2f}, "
+          f"graph {rates['graph'][1]:.2f}, eager {rates['eager'][1]:.2f}; "
+          f"{secs:.1f} s with the ranks' start")
+    for r, res in enumerate(ranks):
+        print(f"{head} rank {r} ({res['card']}): "
+              + "; ".join(f"{mode} {NCCL_PROFILE_STEPS} steps "
+                          + _nccl_prof_txt(p)
+                          for mode, p in res["profile"].items()))
+    rate = statistics.median(rates["graph"])
+    print(f"[nccl] bench_multichip line D={D}: "
+          f"{_bench_line('dam1m', D, n, rate, r0['bench'])}; mean rho "
+          f"{r0['bench']['mean_density']:.2f} at step {r0['bench']['step']}")
+    if not all(all(r["bitwise"].values()) for r in ranks):
+        raise AssertionError(f"{head}: the graph left the eager loop's bits")
+    for r in ranks:
+        _check_launches(f"{head} graph", r["graph_launches"], SOLVE_KERNELS,
+                        3 * NCCL_STEPS)
+    b = r0["bench"]
+    if any(b["overflows"]) or b["n_escaped"] or b["nan"] \
+            or sum(b["per_shard_active"]) != n:
+        raise AssertionError(f"{head}: bench stats {b}")
+    return ranks
+
+
+def _check_switches(card: str, ranks: list[dict]) -> None:
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+
+    base = ranks[0]["switches"]["default geometry"]
+    for name, s in ranks[0]["switches"].items():
+        expect, _ = _solve_kernels(KernelGeometry(**s["switches"]))
+        share = abs(s["mean_density"] - base["mean_density"]) \
+            / base["mean_density"]
+        stats = torch.tensor(s["stats"])
+        print(f"[nccl] dam1m D={len(ranks)} {name}: {NCCL_SWITCH_STEPS} "
+              f"graph steps from the spawn on {card}: stats "
+              f"{s['stats']}; mean rho {s['mean_density']:.2f} vs the "
+              f"default geometry's {base['mean_density']:.2f} "
+              f"({100 * share:.3f} %, within {100 * DENS_MEAN_RTOL:g} %); "
+              f"max speed {s['max_speed']:.4f}; launches a rank "
+              f"{[r['switches'][name]['launches'] for r in ranks]}")
+        if stats[:, 1:].sum() or not share <= DENS_MEAN_RTOL \
+                or torch.tensor(s["diag"])[:, 1:].sum():
+            raise AssertionError(f"[nccl] {name}: stats or density")
+        for r in ranks:
+            _check_launches(f"[nccl] {name}", r["switches"][name]["launches"],
+                            expect, 3 * (NCCL_SWITCH_STEPS + WARMUP_STEPS))
+
+
+def _check_large(card: str, ranks: list[dict], n: int, wall: float) -> None:
+    big = ranks[0]["large"]
+    rate = SCALE_STEPS / big["secs"]
+    stats = torch.tensor(big["stats"])
+    print(f"[nccl] dam2m D={len(ranks)} n={n} wall={wall} on {card}: "
+          f"{SCALE_STEPS} graph steps after a {SCALE_SETTLE}-step settle "
+          f"chunk (first call included: {big['settle_s']:.3f} s) in "
+          f"{big['secs']:.4f} s = {rate:.2f} steps/s = {rate * n:.1f} "
+          f"particle-steps/s (rank 0's clock); stats {big['stats']}; finite "
+          f"{big['finite']}; in [-{BOX_MARGIN}, wall + {BOX_MARGIN}]^3 "
+          f"{big['in_box']}; escaped {big['n_escaped']}; max speed "
+          f"{big['max_speed']:.4f}; mean rho {big['mean_density']:.2f}, max "
+          f"|rho/rho0 - 1| {big['max_density_err']:.4f}; slab bounds "
+          f"{big['slab_bounds']}; peak memory allocated a rank "
+          f"{[round(r['large']['peak_gib'], 3) for r in ranks]} GiB")
+    for r, res in enumerate(ranks):
+        print(f"[nccl] dam2m D={len(ranks)} rank {r}: "
+              + _nccl_prof_txt(res["large"]["profile"]))
+    if stats[:, :, 1:].sum() or int(stats[-1, :, 0].sum()) != n \
+            or not big["finite"] or not big["in_box"] or big["n_escaped"] \
+            or big["nan"] or big["n"] != n:
+        raise AssertionError(f"[nccl] dam2m: state or stats are wrong: {big}")
+
+
+def _check_cell(card: str, ranks: list[dict], n: int, table: dict) -> None:
+    c = ranks[0]["cell"]
+    print(f"[nccl] cell backend D={len(ranks)} n={n} on {card}, table "
+          f"{table}: graphs (window, cell) {c['graphed']}; "
+          f"{len(c['errs'])} steps, each from the window backend's state: "
+          f"max|dx| vs window and coordinates outside rtol {ORACLE_RTOL:g} "
+          f"atol {ORACLE_ATOL:g} {c['errs']}; stats {c['stats']}; seconds a "
+          f"cell step (the first with its warm-up and capture) "
+          f"{[round(s, 4) for s in c['secs']]}")
+    if not all(c["graphed"]) or any(bad for _, bad in c["errs"]) \
+            or any(sum(row[1:]) for s in c["stats"] for row in s):
+        raise AssertionError("[nccl] the cell backend left the window's")
+
+
+def phase_nccl_cli(card: str, D: int, out_dir: str) -> dict:
+    """The runner on D cards at the row's size, with metrics, frames, a GIF
+    and a checkpoint, then its resume ending on a partial chunk; each rank
+    of each run captures one graph and allocates one pair-kernel scratch,
+    counted inside the rank. Returns the ranks' summed launches."""
+    from pdb_sph_tpu_torch import cli
+
+    n, wall = NCCL_ROWS["dam1m"]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ck, fr = os.path.join(out_dir, "ck.npz"), os.path.join(out_dir, "fr")
+    gif = os.path.join(out_dir, "run.gif")
+    common = ["--devices", str(D), "--device", "cuda"]
+    runs = {
+        "run": ["--scene", "dam_break", "--n", str(n), "--wall", str(wall),
+                "--grid-width", str(NCCL_TABLE["grid_width"]), "--steps",
+                str(NCCL_CLI_STEPS), "--metrics-every", str(NCCL_CLI_EVERY),
+                "--render-every", str(NCCL_CLI_EVERY), "--width", "320",
+                "--height", "240", "--out", fr, "--gif", gif,
+                "--checkpoint", ck],
+        "resume": ["--resume", ck, "--steps", str(NCCL_CLI_RESUME),
+                   "--chunk", str(NCCL_CLI_CHUNK), "--metrics-every",
+                   str(NCCL_CLI_CHUNK)]}
+    total: dict = {}
+    real = cli._mesh_rank
+    for name, argv in runs.items():
+        counts = os.path.join(out_dir, f"counts_{name}")
+        os.makedirs(counts)
+        metrics = os.path.join(out_dir, f"{name}.jsonl")
+        os.environ[RANK_COUNTS_ENV] = counts
+        cli._mesh_rank = _counted_mesh_rank
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(argv + common + ["--metrics", metrics])
+            secs = time.perf_counter() - t0
+        finally:
+            cli._mesh_rank = real
+            os.environ.pop(RANK_COUNTS_ENV, None)
+        per_rank = []
+        for r in range(D):
+            with open(os.path.join(counts, f"rank{r}.json")) as f:
+                per_rank.append(json.load(f))
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+        prog = [r for r in records if r["event"] == "progress"]
+        # a record off the diagnostics cadence carries no density
+        dens = [p for p in prog if "mean_density" in p][-1]
+        done = records[-1]
+        print(f"[nccl] runner D={D} {name}: {' '.join(argv + common)}: rc "
+              f"{rc} in {secs:.1f} s; steps "
+              f"{[p['step'] for p in prog]}; {done.get('steps_per_sec', 0):.2f} "
+              f"steps/s over the run ({done.get('wall_seconds', 0):.3f} s, "
+              f"frames, GIF and checkpoint included), median chunk "
+              f"{statistics.median(p['steps_per_sec'] for p in prog):.2f} "
+              f"steps/s on {card}; last record: active "
+              f"{prog[-1]['per_shard_active']}, overflows "
+              f"{prog[-1]['overflows']}; mean rho {dens['mean_density']:.2f} "
+              f"at step {dens['step']}; captures and "
+              f"scratches a rank "
+              f"{[(c['captures'], c['scratches']) for c in per_rank]}")
+        if rc != 0 or done["event"] != "done":
+            raise AssertionError(f"runner D={D} {name}: rc {rc}, {done}")
+        if any(c["captures"] != 1 or c["scratches"] != 1 for c in per_rank):
+            raise AssertionError(f"runner D={D} {name}: not one capture and "
+                                 f"one scratch a rank: {per_rank}")
+        if any(p["nan_detected"] or any(p["overflows"]) or p["n_escaped"]
+               or sum(p["per_shard_active"]) != n for p in prog):
+            raise AssertionError(f"runner D={D} {name}: bad record")
+        for c in per_rank:
+            for k, v in c["launches"].items():
+                total[k] = total.get(k, 0) + v
+    want_png = [f"frame_{s:06d}.png"
+                for s in range(0, NCCL_CLI_STEPS + 1, NCCL_CLI_EVERY)]
+    if sorted(os.listdir(fr)) != want_png or not os.path.getsize(gif):
+        raise AssertionError(f"runner D={D}: frames {sorted(os.listdir(fr))}")
+    if [p["step"] for p in prog] != [NCCL_CLI_STEPS + NCCL_CLI_CHUNK,
+                                     NCCL_CLI_STEPS + NCCL_CLI_RESUME]:
+        raise AssertionError(f"runner D={D}: resume steps "
+                             f"{[p['step'] for p in prog]}")
+    return total
+
+
+def main_ranks(n_ranks: int) -> int:
+    """The [nccl] mode: phases 1-2, then the sharded rollout on NCCL ranks
+    at D = 2 and D = `n_ranks` (the D = 4 parts at the largest)."""
+    if torch.cuda.device_count() < n_ranks:
+        print(f"chip_smoke: --ranks {n_ranks} needs {n_ranks} cards, torch "
+              f"sees {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_nccl")
+    os.makedirs(out_dir, exist_ok=True)
+    card = phase_device()
+    phase_build()
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.ops import hashgrid
+
+    n, wall = NCCL_ROWS["dam1m"]
+    cfg = _nccl_cfg(n, wall)
+    refs, state60 = _stepper_refs(device, cfg, RANK_MARKS, keep=SETTLE_STEPS)
+    # the pair kernels on a rank's restricted plans at the row's size
+    phase_restricted(device, state60, cfg, max(NCCL_DS), NCCL_RESTRICTED_RANK,
+                     head="[nccl] dam1m")
+    del state60
+    torch.cuda.empty_cache()
+    phase_nccl_single(device, card, out_dir)
+    torch.cuda.empty_cache()
+
+    # the cell table of phase_cell, sized from the 80k spawn
+    cfg0 = pbf.default_config(n=N_MAIN)
+    _, counts = torch.unique(hashgrid.cell_ids(cfg0, pbf.spawn(
+        cfg0, "dam_break", seed=0, device=device).x), return_counts=True)
+    cap = 16
+    while cap < CELL_SLACK * int(counts.max()):
+        cap *= 2
+    table = dict(max_occupied_cells=-(-int(CELL_SLACK * counts.numel())
+                                      // 8) * 8,
+                 cell_capacity=cap, block=cap)
+    n2, wall2 = NCCL_ROWS["dam2m"]
+    launches: dict = {}
+    for D in sorted({*NCCL_DS, n_ranks}):
+        if D > n_ranks:
+            continue
+        extra = {} if D != n_ranks else {
+            "switch_steps": NCCL_SWITCH_STEPS,
+            "large": {"row": "dam2m", "n": n2, "wall": wall2,
+                      "settle": SCALE_SETTLE, "steps": SCALE_STEPS,
+                      "profile_steps": NCCL_PROFILE_STEPS,
+                      "trace_dir": out_dir},
+            "cell": {"n": N_MAIN, "table": table, "steps": CELL_STEPS}}
+        phase_two_ranks(device, card, cfg, D, "nccl",
+                        [f"cuda:{r}" for r in range(D)], refs,
+                        head="[nccl] dam1m")
+        ranks = phase_nccl(card, D, out_dir, extra)
+        if D == n_ranks:
+            _check_switches(card, ranks)
+            _check_large(card, ranks, n2, wall2)
+            _check_cell(card, ranks, N_MAIN, table)
+    for k, v in phase_nccl_cli(card, n_ranks,
+                               os.path.join(out_dir, "cli")).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[nccl] the runner's launches summed over ranks and runs: "
+          f"{_nonzero(launches)}")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s from the start of "
+          "the script")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run phases 1-2 and the [nccl] phases on this many "
+                         "NCCL ranks, one card each (0: the one-card run)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import pdb_sph_tpu_torch  # noqa: F401  (fails before any output if absent)
+
+    if args.ranks:
+        return main_ranks(args.ranks)
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)

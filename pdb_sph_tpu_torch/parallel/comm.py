@@ -11,8 +11,10 @@ rank, which has no sender on that side, receives zeros.
 It runs on `torch.distributed`: NCCL with one rank per card, gloo on the
 CPU. gloo moves host memory only, so a gloo group whose tensors live on a
 card (several ranks sharing one card, which NCCL refuses) copies each
-message through a pinned host buffer and back. A one-rank run has no group
-at all: the sharded step takes its fast path.
+message through a pinned host buffer and back, and waits for the card
+each time. On NCCL neither collective reads anything back to the host, so
+a CUDA graph takes them in with the step. A one-rank run has no group at
+all: the sharded step takes its fast path.
 """
 
 from __future__ import annotations
@@ -57,22 +59,26 @@ class Group:
         torch.cuda.current_stream(t.device).synchronize()
         return host
 
-    def _wire_like(self, t: torch.Tensor) -> torch.Tensor:
-        """A zeroed receive buffer for a message shaped like `t`."""
-        if self.backend != "gloo" or t.device.type == "cpu":
-            return torch.zeros_like(t)
-        return torch.zeros(t.shape, dtype=t.dtype, pin_memory=True)
+    @staticmethod
+    def _wire_like(send: torch.Tensor, rows: int) -> torch.Tensor:
+        """A zeroed receive buffer of `rows` rows of messages like the wire
+        tensor `send`, pinned where `send` is."""
+        return torch.zeros((rows, *send.shape[1:]), dtype=send.dtype,
+                           device=send.device, pin_memory=send.is_pinned())
 
     @staticmethod
     def _home(wire: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return wire.to(like.device, non_blocking=True)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """(size, *t.shape): every rank's `t`, in rank order."""
+        """(size, *t.shape): every rank's `t` (at least one dimension), in
+        rank order, gathered by one collective into one buffer allocated
+        here (inside a CUDA graph, from the graph's pool, at an address
+        every replay keeps)."""
         send = self._wire(t)
-        parts = [self._wire_like(send) for _ in range(self.size)]
-        dist.all_gather(parts, send)
-        return self._home(torch.stack(parts), t)
+        out = self._wire_like(send, self.size * send.shape[0])
+        dist.all_gather_into_tensor(out, send)
+        return self._home(out.view(self.size, *send.shape), t)
 
     def shift(self, t: torch.Tensor, direction: int) -> torch.Tensor:
         """Send `t` to rank + direction (+1 or -1) and return what rank -
@@ -80,7 +86,7 @@ class Group:
         if direction not in (1, -1):
             raise ValueError(f"direction must be +1 or -1, got {direction}")
         send = self._wire(t)
-        recv = self._wire_like(send)
+        recv = self._wire_like(send, send.shape[0])
         dst, src = self.rank + direction, self.rank - direction
         ops = []
         if 0 <= dst < self.size:

@@ -138,15 +138,19 @@ def _rollout_rank(group: Group, device: torch.device, workdir: str,
     state = interop.state_from_numpy(*arrays, 0, "cpu")
     pcfg = pcfg or ParallelConfig.create(cfg, group.size, state=state)
     sst = distribute(cfg, pcfg, state, group, device)
-    density_diag = make_sharded_diagnostics(cfg, pcfg, group, backend)
+    # one rollout for the run: every chunk replays its stepper, scratch and
+    # (on NCCL ranks) graph, which the diagnostics share
+    rollout = make_sharded_rollout(cfg, pcfg, group, backend, chunks[0],
+                                   device)
+    work = rollout.stepper.work
+    density_diag = make_sharded_diagnostics(cfg, pcfg, group, backend,
+                                            work.scratch if work else None)
     cuda_pbf.reset_launches()
     out = {}
     for i, steps in enumerate(chunks):
-        rollout = make_sharded_rollout(cfg, pcfg, group, backend, steps,
-                                       device)
         fence(device)
         t0 = time.perf_counter()
-        sst, stats, diag = rollout(sst)
+        sst, stats, diag = rollout(sst, steps)
         fence(device)
         secs = torch.tensor(time.perf_counter() - t0, dtype=torch.float64)
         st = collect(sst, group)

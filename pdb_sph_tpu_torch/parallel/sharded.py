@@ -24,9 +24,14 @@ Backends: `window` runs the port's pair kernels on each rank (the JAX
 `cell` the cell table (`ops/cell_list.py`). A one-rank run has no group
 and, on the window backend, takes the fast path `_step_single`, which is
 `core.step.step_fn` itself plus the active-slot masks; on a card its
-ShardedRollout runs that step as a CUDA graph, as `core.step.Rollout`
-does. Several ranks stay eager: gloo stages every collective through
-host memory.
+ShardedRollout runs its step, on either backend, as a CUDA graph, as
+`core.step.Rollout` does. So does a ShardedRollout of several NCCL ranks,
+one card each, on either backend: the step's nine collectives (one
+all_gather of the loads, two shifts of the migration, two of the ghosts
+per solver iteration) are captured with it and meet at every replay,
+since every rank replays the same number of steps. gloo ranks stay
+eager: gloo stages every collective through host memory, which waits for
+the card.
 
 Deliberate differences from the JAX module (its ADVICE faults): the move
 rule donates no strip whose population exceeds `mig_capacity`
@@ -247,9 +252,11 @@ def initial_bounds(cfg: SimConfig, n_devices: int,
 
 def _zxkey(cfg: SimConfig, p: torch.Tensor) -> torch.Tensor:
     """Device-side zx-key of (n, 3) positions (see _np_zxkey); clamped
-    before the integer conversion, as `hashgrid.cell_ids` is."""
+    before the integer conversion, as `hashgrid.cell_ids` is. The x and z
+    columns are a strided view: an index list would be a tensor copied
+    from the host at every step, which a CUDA graph cannot capture."""
     w = cfg.nb_grid_width
-    xz = torch.nan_to_num(p[:, [0, 2]] * f32(1.0 / cfg.nb_cell), nan=0.0)
+    xz = torch.nan_to_num(p[:, ::2] * f32(1.0 / cfg.nb_cell), nan=0.0)
     xz = xz.clamp_(0, w - 1).to(torch.int32)
     return xz[:, 1] * w + xz[:, 0]
 
@@ -686,11 +693,22 @@ def step_into(stepper: ShardedStepper, sst: Sequence[torch.Tensor],
               acc: Sequence[torch.Tensor]) -> None:
     """One sharded step that writes the next state back into the tensors
     of `sst` (x, v, ids, bounds) and folds its stats and diag into `acc`:
-    the body that a one-rank ShardedRollout captures."""
+    the body that a ShardedRollout captures."""
     out, stats, diag = stepper.step(ShardedState(*sst))
     for dst, src in zip(sst, out):
         dst.copy_(src)
     _aggregate(acc, stats, diag)
+
+
+def captures(device: torch.device, group: Group | None) -> bool:
+    """Whether a ShardedRollout on `device` runs as a CUDA graph: on a
+    card, one rank (no group) or the ranks of an NCCL group, whose
+    collectives the graph takes in, on either backend. gloo ranks, whose
+    staging waits for the card, and the CPU run the Python loop. The choice
+    follows the backend alone: a capture that fails raises, nothing falls
+    back."""
+    return device.type == "cuda" and (group is None
+                                      or group.backend == "nccl")
 
 
 class ShardedRollout:
@@ -699,9 +717,9 @@ class ShardedRollout:
     returns (sst, stats (D, 5), diag (D, 3)) aggregated over the chunk
     (`_aggregate`). The caller's state is never written.
 
-    One rank on a card with the window backend runs as a CUDA graph of its
-    fast path (core.step.CapturedStep, captured at the first call); several
-    ranks, the CPU and the cell backend run a Python loop."""
+    Where `captures` says so, the step runs as a CUDA graph
+    (core.step.CapturedStep with the body `step_into`, captured at the first
+    call after one eager warm-up step); elsewhere as a Python loop."""
 
     def __init__(self, cfg: SimConfig, pcfg: ParallelConfig,
                  group: Group | None = None, backend: str = "window",
@@ -711,8 +729,7 @@ class ShardedRollout:
             raise ValueError(f"unroll_steps must be >= 1, got {unroll_steps}")
         self.stepper = ShardedStepper(cfg, pcfg, group, backend, device)
         self.unroll_steps = unroll_steps
-        self.graphed = (pcfg.n_devices == 1 and backend == "window"
-                        and self.stepper.device.type == "cuda")
+        self.graphed = captures(self.stepper.device, group)
         self.captured: CapturedStep | None = None
 
     def __call__(self, sst: ShardedState, steps: int | None = None):

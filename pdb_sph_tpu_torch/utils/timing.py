@@ -38,15 +38,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def profile_kernels(fn, trace: str | Path) -> dict:
+# the annotation that opens the window a profile reads
+WINDOW = "profiled window"
+
+
+def profile_kernels(fn, trace: str | Path, before=None) -> dict:
     """Run `fn()` under torch.profiler (CPU and CUDA activity), fenced,
     write the Chrome trace to `trace`, and return what it says of the
-    card's kernels (`kernel_busy`)."""
+    card's kernels (`kernel_busy`) from the start of `fn`. `before()`, when
+    given, runs first under the running profiler and outside that window:
+    a barrier there lines several ranks up after each has started its
+    profiler, so that no rank reads another's late start as its own wait."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
+        if before is not None:
+            before()
+        with torch.profiler.record_function(WINDOW):
+            fn()
+            torch.cuda.synchronize()
     prof.export_chrome_trace(str(trace))
     return kernel_busy(trace)
 
@@ -56,10 +66,16 @@ def kernel_busy(trace: str | Path) -> dict:
     durations (`kernel_ms`), the span from the first one's start to the
     last one's end, the device's busy time in it (the kernels' intervals
     merged) and its share of the span, and (count, ms) by kernel name,
-    longest first. Without kernels in the trace every time is None."""
+    longest first. Where the trace holds the host's WINDOW annotation,
+    only the kernels that start after it opened count. Without kernels in
+    the trace every time is None."""
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    opened = [e["ts"] for e in events if e.get("name") == WINDOW
+              and not str(e.get("cat", "")).startswith("gpu")]
+    if opened:
+        kern = [e for e in kern if e["ts"] >= min(opened)]
     if not kern:
         return {"kernels": 0, "kernel_ms": None, "span_ms": None,
                 "busy_ms": None, "busy_share": None, "by_name": []}

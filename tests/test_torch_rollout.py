@@ -228,6 +228,26 @@ def test_kernel_busy_merges_overlapping_kernels(tmp_path):
     assert timing.kernel_busy(trace)["busy_share"] is None
 
 
+def test_kernel_busy_reads_from_the_profiled_window_on(tmp_path):
+    """Where the host opened the profiled window, a kernel that started
+    before it (a barrier's, one rank waiting for another) is left out; the
+    window's copy on the device's timeline opens nothing."""
+    trace = tmp_path / "trace.json"
+    events = [{"cat": "kernel", "name": "barrier", "ts": 0, "dur": 50},
+              {"cat": "gpu_user_annotation", "name": timing.WINDOW,
+               "ts": 10, "dur": 100},
+              {"cat": "user_annotation", "name": timing.WINDOW, "ts": 60,
+               "dur": 100},
+              {"cat": "kernel", "name": "a", "ts": 70, "dur": 10},
+              {"cat": "kernel", "name": "b", "ts": 90, "dur": 10}]
+    trace.write_text(json.dumps({"traceEvents": events}))
+    r = timing.kernel_busy(trace)
+    assert r["kernels"] == 2 and r["kernel_ms"] == pytest.approx(0.02)
+    assert r["span_ms"] == pytest.approx(0.03)
+    assert r["busy_share"] == pytest.approx(2 / 3)
+    assert [name for name, _, _ in r["by_name"]] == ["a", "b"]
+
+
 def test_rollout_matches_jax_make_rollout():
     jcfg = jpbf.default_config(n=256)
     st = jpbf.spawn(jcfg, "standard", seed=1)
