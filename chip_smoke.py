@@ -94,8 +94,19 @@ behind a barrier (busy share, device ms a step, the NCCL kernels' share);
 the line of bench_multichip.py's fields, also for D = 1.
 At D = 4 also: the 2M dam break (wall 5.85), every tensor-core switch,
 the cell backend at 80k against the window backend, and the runner on four
-cards with frames, GIF and checkpoint, then its resume; each rank of the
-runner captures one graph and allocates one pair-kernel scratch.
+cards with frames, GIF and checkpoint and the JAX package's tier flags
+(--retier-at 240 --retier-maxlanes 49152 --retier-geom cc_d=512), then its
+resume past the re-tier, a forced ghost overflow on the compact tier (it
+falls back) and a forced migration overflow (rc 2); each rank of the
+runner captures one graph and allocates one pair-kernel scratch a tier.
+[tiers], the JAX package's two-tier flow (parallel/sharded.py:244-292), at
+D = 2 and 4: rollout_ranks re-tiers at step 243 and runs 240 more steps on
+the compact tier; from the step-243 state each tier runs 240 graph steps
+(slots, device ms split, busy share, peak memory, balance, stats), the
+compact tier's graph bitwise its eager loop, both tiers in lockstep
+(bitwise while their slab bounds agree), rates in turns; at D = 4 the nine
+forms on rank 1's compact-tier local set and plans against their plain
+versions. The mode ends with its own kernels line.
 
 Every path (phases 5, 6 and 7's runs, the sharded rollouts, phase 8's
 rollouts and runs) is driven with the kernel launch counts set to 0 just before it and read just after;
@@ -158,6 +169,10 @@ RHO_RTOL = 1e-5
 # must also lie at least TC_SEPARATION times closer to its plain version
 # than that plain version lies to the plain FP32 form. In a larger box the
 # ulp of |p|^2 <= 3 wall^2 grows, and the atol with it (_tc_lambda_atol).
+# The project forms with mxu_proj keep TC_POS_ATOL; where a check asks for
+# the witness (_proj_witness), rows beyond it pass only if the kernel lies
+# no farther from the form's float64 evaluation than its FP32 plain
+# version does, plus TC_POS_ATOL: both are then roundings of one function.
 TC_LAMBDA_RTOL, TC_LAMBDA_ATOL = 1e-4, 1e-6
 TC_POS_ATOL = 1e-5
 TC_SEPARATION = 10
@@ -307,17 +322,24 @@ NCCL_DS = (2, 4)
 # graph steps under the sync-debug mode
 NCCL_STEPS, NCCL_SYNC_STEPS, NCCL_PROFILE_STEPS = 240, 20, 20
 # the restricted plans at the row's size: this rank of D = 4, whose band has
-# ghosts on both sides
-NCCL_RESTRICTED_RANK = 1
+# ghosts on both sides; and the rank whose compact-tier local set [tiers]
+# checks the nine forms on
+NCCL_RESTRICTED_RANK = TIER_RANK = 1
 # every switch at D = 4: rollouts of this many steps from the spawn, in the
 # default geometry, with every switch, and in the one-switch geometries
 NCCL_SWITCH_STEPS = 40
-# the runner on the cards: steps and record cadence, then a resume ending
-# on a partial chunk
-NCCL_CLI_STEPS, NCCL_CLI_EVERY, NCCL_CLI_RESUME, NCCL_CLI_CHUNK = \
-    60, 20, 40, 30
-# where each rank of the runner leaves what it counted
+# the runner on the cards: steps, record and frame cadence, the re-tier
+# step (with the JAX tier flags of docs/SCALING.md:176-179), then a resume
+# past it ending on a partial chunk; the forced-overflow runs from the
+# run's checkpoint
+NCCL_CLI_STEPS, NCCL_CLI_EVERY, NCCL_CLI_RENDER = 300, 20, 100
+NCCL_CLI_RETIER, NCCL_CLI_RESUME, NCCL_CLI_CHUNK = 240, 40, 30
+NCCL_CLI_FORCED_STEPS = 60
+JAX_TIER_FLAGS = ["--retier-maxlanes", "49152", "--retier-geom", "cc_d=512"]
+# where each rank of the runner leaves what it counted, and which overflow
+# it forces on the compact tier
 RANK_COUNTS_ENV = "CHIP_SMOKE_RANK_COUNTS"
+RANK_FORCE_ENV = "CHIP_SMOKE_RANK_FORCE"
 
 
 def phase_device() -> str:
@@ -669,17 +691,58 @@ def _tc_lambda_atol(wall: float) -> float:
     return TC_LAMBDA_ATOL * math.ulp(3.0 * wall * wall) / math.ulp(12.0)
 
 
+def _proj_witness(cfg, src, plan, n: int, got, want, err) -> dict:
+    """The second witness for a project form with mxu_proj whose kernel
+    lies beyond TC_POS_ATOL of its FP32 plain version: the plain version
+    evaluated in float64 (the same bf16 splits, every sum without float32
+    rounding). `got`, `want` (n, 3) are the kernel's and the FP32 plain
+    version's positions, `err` their difference. Returns the largest
+    distance of each from the float64 form, over every row and over the
+    rows beyond TC_POS_ATOL, the pairs of those rows (and of all rows)
+    that the float32 split rd2 puts on the other side of h^2 than the
+    float64 one does, and `ok`: the kernel no farther from the float64
+    form than the plain version, plus TC_POS_ATOL."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    w64 = cuda_pbf.project_pass_ref(cfg, src.double(), plan, n)[:n, :3]
+    dk = (got.double() - w64).abs().amax(-1)
+    dp = (want.double() - w64).abs().amax(-1)
+    beyond = (err > TC_POS_ATOL).any(-1)
+    flips = torch.zeros(n, dtype=torch.int64, device=src.device)
+    h2 = float(cuda_pbf.f32(cfg.h2))
+    for (row0, _, _, rd2, mask, _), (_, _, _, rd64, _, _) in zip(
+            cuda_pbf._pair_blocks(cfg, src, plan, n, split_rd2=True),
+            cuda_pbf._pair_blocks(cfg, src.double(), plan, n,
+                                  split_rd2=True)):
+        per_row = (((rd2 < h2) != (rd64 < h2)) & mask).sum(-1).reshape(-1)
+        rows = per_row[:max(0, min(n - row0, per_row.numel()))]
+        flips[row0:row0 + rows.numel()] = rows
+    out = {"plain_vs_f64": float(dp.max()), "kernel_vs_f64": float(dk.max()),
+           "rows_beyond": int(beyond.sum()),
+           "plain_vs_f64_beyond": float(dp[beyond].max()) if beyond.any()
+           else 0.0,
+           "kernel_vs_f64_beyond": float(dk[beyond].max()) if beyond.any()
+           else 0.0,
+           "flips_beyond": int(flips[beyond].sum()),
+           "flips": int(flips.sum())}
+    out["ok"] = out["kernel_vs_f64"] <= out["plain_vs_f64"] + TC_POS_ATOL
+    return out
+
+
 def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
                 plain_reps: int, plan_p=None, reps: int = REPS,
                 tag: str = "", head: str = "[kernels]",
-                near: int | None = None) -> dict:
+                near: int | None = None,
+                witnesses: dict | None = None) -> dict:
     """The six tensor-core instantiations against their plain versions on
     one state; the project forms take the FP32 kernel's lambda, as the FP32
     project kernel does, and run on `plan_p` (default `plan`). Each
     launched twice for bitwise-equal output, the scratch's counters back at
     0 after, the rows of masked chunks as JAX writes them. `near` as in
-    _fp32_kernels. Returns {counter: (max|err|, ms, plain ms or None, bound
-    ms, bound by)}."""
+    _fp32_kernels. With `witnesses` (a dict it fills by counter), a project
+    form with mxu_proj also gets _proj_witness, which decides its rows
+    beyond TC_POS_ATOL. Returns {counter: (max|err|, ms, plain ms or None,
+    bound ms, bound by)}."""
     import dataclasses
 
     from pdb_sph_tpu_torch.ops import cuda_pbf
@@ -733,6 +796,20 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
         else:
             n_bad = int((err > TC_POS_ATOL).sum())
             tol = f"atol {TC_POS_ATOL:g}"
+            if witnesses is not None and switches.get("mxu_proj"):
+                wit = witnesses[name] = _proj_witness(tcfg, src, kplan, n,
+                                                      g, w, err)
+                tol += (f"; float64 witness: kernel {wit['kernel_vs_f64']:.3e}"
+                        f" and plain {wit['plain_vs_f64']:.3e} from it, on "
+                        f"the {wit['rows_beyond']} rows beyond the atol "
+                        f"{wit['kernel_vs_f64_beyond']:.3e} and "
+                        f"{wit['plain_vs_f64_beyond']:.3e}; pairs across h "
+                        f"between float32 and float64 rd2 "
+                        f"{wit['flips_beyond']} on those rows, "
+                        f"{wit['flips']} in all; kernel within plain + "
+                        f"{TC_POS_ATOL:g} of it: {wit['ok']}")
+                if wit["ok"]:
+                    n_bad = 0
         k_ms = cuda_ms(lambda: wrapper(tcfg, src, kplan, n, buf, scratch),
                        reps)
         r_ms = (cuda_ms(lambda: plain(tcfg, src, kplan, n, buf), plain_reps)
@@ -1383,7 +1460,7 @@ def _stepper_refs(device, cfg, marks, keep: int | None = None):
 
 def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
                     comm: str = "gloo", devices=None, refs=None,
-                    head: str = "[ranks]") -> dict:
+                    head: str = "[ranks]", compact_steps: int = 0):
     """D ranks through launch.rollout_ranks, one rollout a rank, each with
     its kernels on restricted plans: by default two gloo ranks sharing the
     card at the flagship size, the exchange staged through pinned host
@@ -1396,9 +1473,13 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
     the order of the sums alone spreads every trajectory; and after each
     chunk, up to the end of the SHARD_ROLLOUT-step rollout, the ranks'
     density diagnostics (K1 rho over each rank's particles and ghosts):
-    their mean against the single device's diagnostics_fn.
-    Stats: no overflow, every particle, nothing escaped, no NaN, in every
-    chunk. Returns the ranks' summed launches."""
+    their mean against the single device's diagnostics_fn. With
+    `compact_steps`, rollout_ranks then re-tiers (collect,
+    ParallelConfig.compact, distribute, a new rollout and graph) and runs
+    that many steps more on the compact tier, held by the density at its
+    end (`refs` must reach that step). Stats: no overflow, every particle,
+    nothing escaped, no NaN, in every chunk. Returns (the ranks' summed
+    launches, the collected state at the end of RANK_CHUNKS)."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.parallel import launch, sharded
     from pdb_sph_tpu_torch.parallel.comm import Group
@@ -1407,17 +1488,23 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
     n = cfg.n
     devices = list(devices or [str(device)] * D)
     chunks, marks = list(RANK_CHUNKS), RANK_MARKS
+    retier = None
+    if compact_steps:
+        retier = len(chunks)
+        chunks.append(compact_steps)
+        marks = (*marks, marks[-1] + compact_steps)
     if refs is None:
         refs, _ = _stepper_refs(device, cfg, marks)
     st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
     pcfg = sharded.ParallelConfig.create(cfg, D, state=st)
-    # a graph's first call adds its eager warm-up step
+    # a graph's first call adds its eager warm-up step, on each tier
     warm = WARMUP_STEPS * sharded.captures(torch.device(devices[0]),
                                            Group(0, D, comm))
+    warm_steps = warm * (1 + bool(compact_steps))
     t0 = time.perf_counter()
     got, ranks = launch.rollout_ranks(
         cfg, st, D, chunks, "window", devices=devices, comm=comm,
-        timeout_s=RANKS_TIMEOUT_S)
+        timeout_s=RANKS_TIMEOUT_S, retier=retier)
     secs = time.perf_counter() - t0
     err3 = float((got[0][0].x - refs[marks[0]][0]).abs().max())
     pop = _population(got[1][0].x, refs[marks[1]][0])
@@ -1430,6 +1517,15 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
     launches = {k: sum(r[k] for r in ranks) for k in ranks[0]}
     where = (f"sharing {card}" if len(set(devices)) == 1
              else f"one card each, {card}")
+    tier = ""
+    if compact_steps:
+        compact = sharded.ParallelConfig.compact(cfg, D, state=got[2][0],
+                                                 prior=pcfg)
+        tier = (f"; then the re-tier at step {marks[-2]} to the compact "
+                f"tier, capacities "
+                f"{[compact.capacity, compact.mig_capacity, compact.ghost_capacity]}"
+                f", and {compact_steps} steps on it in {got[3][3]:.4f} s "
+                "(warm-up step and capture included)")
     print(f"{head} D={D} {comm} ranks {where}, n={n} wall={cfg.wall} "
           f"grid_width {cfg.grid_width}, capacities (slots, migration, "
           f"ghosts) {[pcfg.capacity, pcfg.mig_capacity, pcfg.ghost_capacity]}"
@@ -1448,8 +1544,8 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
           f"{roll_s:.4f} s = {SHARD_ROLLOUT / roll_s:.2f} steps/s (rank 0's "
           f"clock, fenced); stats by chunk "
           f"{[g[1].tolist() for g in got]}; launches a rank "
-          f"{[{k: v for k, v in r.items() if v} for r in ranks]}; {secs:.1f}"
-          " s with the ranks' start")
+          f"{[{k: v for k, v in r.items() if v} for r in ranks]}{tier}; "
+          f"{secs:.1f} s with the ranks' start")
     torch.testing.assert_close(got[0][0].x, refs[marks[0]][0],
                                rtol=SHARD_RTOL, atol=SHARD_ATOL)
     for _, s, d, _, dg in got:
@@ -1466,8 +1562,8 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
                                  "differs from the single device's")
     for r in ranks:
         _check_launches(f"{head} D={D}", r, SOLVE_KERNELS,
-                        3 * (marks[-1] + warm), rho=len(chunks))
-    return launches
+                        3 * (marks[-1] + warm_steps), rho=len(chunks))
+    return launches, got[len(RANK_CHUNKS) - 1][0]
 
 
 def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
@@ -2020,6 +2116,194 @@ def _nccl_cell(group, device, job: dict, res: dict) -> None:
                    "stats": stats, "secs": secs}
 
 
+def _record_local_plans(path: str):
+    """Patch the sharded step so that its next window solve saves, at
+    `path`, what its first density and project passes run on: the rank's
+    local set sorted and padded to whole chunks (rows (n_pad, 4), the
+    invalid slots 0, as the solve writes them), its row count and the
+    restricted plans' tensors. Returns the function that undoes the patch."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    real_set, real_plans, seen = sharded._local_set, sharded._window_plans, []
+
+    def local_set(*args):
+        out = real_set(*args)
+        seen.append(out)
+        return out
+
+    def window_plans(cfg, cid, z_bounds):
+        out = real_plans(cfg, cid, z_bounds)
+        if len(seen) == 1:
+            combined, ok, _ = seen[0]
+            order, _, plan_d, plan_p = out
+            n = combined.shape[0]
+            p4 = torch.zeros((cuda_pbf.pad_to_chunks(cfg, n), 4),
+                             dtype=torch.float32, device=combined.device)
+            p4[:n, :3] = torch.where(ok[order][:, None], combined[order], 0.0)
+            torch.save({"p4": p4.cpu(), "n": n,
+                        "valid": int(ok.sum()),
+                        **{f"{k}_{f}": getattr(pl, f).cpu()
+                           for k, pl in (("d", plan_d), ("p", plan_p))
+                           for f in ("ranges", "seg_prefix", "seg_len")}},
+                       path)
+            seen.append(None)
+        return out
+
+    sharded._local_set, sharded._window_plans = local_set, window_plans
+
+    def undo():
+        sharded._local_set, sharded._window_plans = real_set, real_plans
+    return undo
+
+
+def _tier_run(group, device, cfg, pcfg, st, job: dict, name: str) -> tuple:
+    """One tier from the state `st`: its rollout's first call (warm-up,
+    capture, job["steps"] replays), then job["profile_steps"] profiled
+    behind the barrier; (the rollout, its density diagnostics, its first
+    state, the result of the steps, the tier's figures)."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    s0 = sharded.distribute(cfg, pcfg, st, group, device)
+    roll, dens = sharded.tier_programs(cfg, pcfg, group, "window", 1, device)
+    if not roll.graphed:
+        raise AssertionError("the NCCL ranks' ShardedRollout is not a graph")
+    cuda_pbf.reset_launches()
+    fence(device)
+    t0 = time.perf_counter()
+    g, gs, gd = roll(s0, job["steps"])
+    fence(device)
+    first_s = time.perf_counter() - t0
+    launches = _nonzero(cuda_pbf.LAUNCHES)
+    k = job["profile_steps"]
+    prof = _nccl_profile(lambda: roll(s0, k), k, os.path.join(
+        job["trace_dir"], f"tiers_d{group.size}_{name}_rank{group.rank}"
+                          ".json"), group, device)
+    act = gs[:, 0].double()
+    return roll, dens, s0, (g, gs, gd), {
+        "slots": pcfg.capacity + 2 * pcfg.ghost_capacity,
+        "capacity": pcfg.capacity, "ghost_capacity": pcfg.ghost_capacity,
+        "mig_capacity": pcfg.mig_capacity, "first_s": first_s,
+        "launches": launches, "profile": prof,
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+        "stats": gs.tolist(), "diag": gd.tolist(),
+        "balance": float(act.min() / act.mean())}
+
+
+def _lockstep(group, rolls: dict, steps: int) -> dict:
+    """Both tiers' rollouts one step at a time from their first states:
+    the states are bitwise equal while the slab bounds are (every op of the
+    step but the move rule sees the valid slots alone); the first step
+    whose bounds differ, and 3 steps later the largest position difference
+    and whether it is within the step-3 tolerance."""
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    (ra, a), (rb, b) = rolls["spawn"], rolls["compact"]
+    out = {"bounds_part_at": None, "bitwise_through": 0}
+
+    def same(a, b) -> bool:
+        # the particles fill the first slots of either tier, in one order
+        m = b.x.shape[0]
+        mine = (all(torch.equal(s[:m], t) for s, t in zip(a[:3], b[:3]))
+                and bool((a.ids[m:] < 0).all()))
+        return bool(group.all_gather(torch.tensor(
+            [int(mine)], dtype=torch.int32, device=a.x.device)).all())
+
+    for i in range(1, steps + 1):
+        a, _, _ = ra(a, 1)
+        b, _, _ = rb(b, 1)
+        if out["bounds_part_at"] is None:
+            if not torch.equal(a.bounds, b.bounds):
+                out["bounds_part_at"] = i
+                out["bounds"] = [a.bounds[1:].tolist(), b.bounds[1:].tolist()]
+            elif same(a, b):
+                out["bitwise_through"] = i
+        elif i == out["bounds_part_at"] + SHARD_STEPS - 1:
+            xa, xb = (sharded.collect(t, group).x for t in (a, b))
+            out["max_dx_3_after"] = float((xa - xb).abs().max())
+            out["close_3_after"] = bool(torch.allclose(
+                xa, xb, rtol=SHARD_RTOL, atol=SHARD_ATOL))
+            break
+    return out
+
+
+def _nccl_tiers(group, device, job: dict, res: dict) -> None:
+    """The two tiers of the JAX package's flow from one state (the
+    collected state of the correctness chunks' end): the spawn tier
+    (ParallelConfig.create of it) and the compact tier (.compact of it,
+    prior the spawn tier), each distributed from that state and run
+    job["steps"] graph steps, then freed (ShardedRollout.release) before
+    the next tier allocates; the density of both final states; the compact
+    tier's graph against its eager loop; then on rollouts built anew, both
+    alive, the tiers in lockstep (_lockstep) and their rates in turns.
+    With job["plans"], the compact tier's first step also leaves the local
+    set and plans of rank job["plans_rank"] there."""
+    from pdb_sph_tpu_torch import interop
+    from pdb_sph_tpu_torch.parallel import sharded
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    cfg = _nccl_cfg(job["n"], job["wall"])
+    st = interop.state_from_numpy(*torch.load(job["state"]), 0, "cpu")
+    tiers = {"spawn": sharded.ParallelConfig.create(cfg, group.size,
+                                                    state=st)}
+    tiers["compact"] = sharded.ParallelConfig.compact(
+        cfg, group.size, state=st, prior=tiers["spawn"])
+    out, finals = {}, {}
+    for name, pcfg in tiers.items():
+        roll, dens, s0, (g, gs, gd), out[name] = _tier_run(
+            group, device, cfg, pcfg, st, job, name)
+        finals[name] = [t.cpu() for t in sharded.collect(g, group)[:3]]
+        out[name]["mean_density"] = _weighted_density(gs, dens(g))
+        if name == "compact":
+            e, es, ed = _eager_sharded(roll.stepper, s0, job["steps"])
+            same = {f: torch.equal(a, b) for f, a, b in zip(g._fields, g, e)}
+            same.update(stats=torch.equal(gs, es), diag=torch.equal(gd, ed))
+            out["graph_vs_eager"] = same
+            del e, es, ed
+            if job.get("plans"):
+                undo = _record_local_plans(job["plans"]) \
+                    if group.rank == job["plans_rank"] else (lambda: None)
+                try:
+                    roll.stepper.step(s0)
+                finally:
+                    undo()
+        roll.release()
+        del roll, dens, s0, g
+        fence(device)
+        out[name]["allocated_after_release_gib"] = \
+            torch.cuda.memory_allocated(device) / 2 ** 30
+    out["final_bitwise"] = all(torch.equal(a, b) for a, b in
+                               zip(finals["spawn"], finals["compact"]))
+    out["final_max_dx"] = float((finals["spawn"][0]
+                                 - finals["compact"][0]).abs().max())
+    del finals
+
+    rolls = {}
+    for name, pcfg in tiers.items():
+        s0 = sharded.distribute(cfg, pcfg, st, group, device)
+        roll = sharded.make_sharded_rollout(cfg, pcfg, group, "window", 1,
+                                            device)
+        roll(s0, 1)  # warm-up step and capture
+        rolls[name] = (roll, s0)
+    out["lockstep"] = _lockstep(group, rolls, job["steps"])
+    rates = {"spawn": [], "compact": []}
+    for name in ("spawn", "compact", "compact", "spawn"):
+        roll, s0 = rolls[name]
+        fence(device)
+        t0 = time.perf_counter()
+        roll(s0, job["steps"])
+        fence(device)
+        rates[name].append(job["steps"] / (time.perf_counter() - t0))
+    for roll, _ in rolls.values():
+        roll.release()
+    out["rates"] = rates
+    res["tiers"] = out
+
+
 def _nccl_rank(group, device, workdir: str, job: dict) -> None:
     """One NCCL rank of an [nccl] run: the parts `job` names, then this
     rank's results in rank{r}.json."""
@@ -2027,6 +2311,8 @@ def _nccl_rank(group, device, workdir: str, job: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     res: dict = {"card": torch.cuda.get_device_name(device)}
     _nccl_main(group, device, job, res)
+    if "tiers" in job:
+        _nccl_tiers(group, device, job["tiers"], res)
     if "switch_steps" in job:
         _nccl_switches(group, device, job, res)
     if "large" in job:
@@ -2040,15 +2326,48 @@ def _nccl_rank(group, device, workdir: str, job: dict) -> None:
 def _counted_mesh_rank(group, device, workdir, *job) -> None:
     """A rank of the sharded runner (cli._mesh_rank) that counts its graph
     captures and pair-kernel scratches and leaves them, with its kernel
-    launches, in the directory RANK_COUNTS_ENV names."""
+    launches, in the directory RANK_COUNTS_ENV names; rank 0 also leaves
+    there the state each re-tier sizes its tier from (retier{i}.pt). With
+    RANK_FORCE_ENV set, every compact tier is forced to overflow: "ghost"
+    gives it a quarter of its ghost capacity (the exchange then truncates
+    for real), "migration" adds one to its migration column every step."""
+    import dataclasses
+
     from pdb_sph_tpu_torch import cli
     from pdb_sph_tpu_torch.ops import cuda_pbf
+    from pdb_sph_tpu_torch.parallel import sharded
 
+    counts_dir, force = os.environ[RANK_COUNTS_ENV], \
+        os.environ.get(RANK_FORCE_ENV, "")
+    real_compact, real_step = (sharded.ParallelConfig.compact,
+                               sharded._shard_step)
+    compact_tiers = []
+
+    def compact(cfg, n_devices, state, **kw):
+        if group.rank == 0:
+            torch.save(tuple(t.cpu() for t in state[:3]), os.path.join(
+                counts_dir, f"retier{len(compact_tiers)}.pt"))
+        pcfg = real_compact(cfg, n_devices, state, **kw)
+        if force == "ghost":
+            pcfg = dataclasses.replace(pcfg, ghost_capacity=max(
+                128, pcfg.ghost_capacity // 4 // 128 * 128))
+        compact_tiers.append(pcfg)
+        return pcfg
+
+    def step(cfg, pcfg, *rest):
+        out = real_step(cfg, pcfg, *rest)
+        if force == "migration" and any(pcfg is c for c in compact_tiers):
+            stats = out[4].clone()
+            stats[1] += 1
+            out = (*out[:4], stats, out[5])
+        return out
+
+    sharded.ParallelConfig.compact = staticmethod(compact)
+    sharded._shard_step = step
     with _counting(cuda_pbf, "alloc_scratch") as scratches, \
             _counting(torch.cuda.CUDAGraph, "capture_begin") as captures:
         cli._mesh_rank(group, device, workdir, *job)
-    with open(os.path.join(os.environ[RANK_COUNTS_ENV],
-                           f"rank{group.rank}.json"), "w") as f:
+    with open(os.path.join(counts_dir, f"rank{group.rank}.json"), "w") as f:
         json.dump({"captures": captures[0], "scratches": scratches[0],
                    "launches": cuda_pbf.LAUNCHES}, f)
 
@@ -2196,6 +2515,138 @@ def phase_nccl(card: str, D: int, out_dir: str,
     return ranks
 
 
+def _tier_prof_txt(p: dict) -> str:
+    if not p.get("kernels"):
+        return "the profiler saw no kernels (not measured)"
+    rest = p["ms"] - p["pair_ms"] - p["nccl_ms"]
+    return (f"{p['ms']:.4f} device ms a step = pair kernels "
+            f"{p['pair_ms']:.4f} + NCCL {p['nccl_ms']:.4f} + the rest "
+            f"{rest:.4f}; {p['kernels']:.1f} kernels a step; busy "
+            f"{100 * p['busy']:.1f} %")
+
+
+def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
+                failures: list) -> dict:
+    """The [tiers] part of the D ranks' results: each tier's figures a
+    rank, then the checks, whose failures go to `failures`: the compact
+    tier's graph bitwise its eager loop on every rank; the two tiers from
+    one state bitwise equal while their slab bounds agree, within the
+    step-3 tolerance 3 steps after the move rule parts them (mig_capacity,
+    the largest strip it donates, is the one capacity an op of the step
+    reads), and their final mean density within DENS_MEAN_RTOL of each
+    other (bitwise when the bounds never part); zero overflow and every
+    particle on both tiers; the compact tier smaller than the spawn tier on
+    every rank, in slots and in peak memory. Returns the compact tier's
+    launches summed over the ranks."""
+    head = f"[tiers] dam1m D={D}"
+    r0 = ranks[0]["tiers"]
+    steps = NCCL_STEPS
+    rates, lock = r0["rates"], r0["lockstep"]
+    part = lock["bounds_part_at"]
+    dens = [r0[t]["mean_density"] for t in ("spawn", "compact")]
+    share = abs(dens[1] - dens[0]) / dens[0]
+    parted = ("the slab bounds agree through all of them" if part is None
+              else f"the slab bounds part at step {part} (spawn, compact: "
+                   f"{lock['bounds']}), and {SHARD_STEPS} steps on the "
+                   f"positions differ by max {lock['max_dx_3_after']:.3e} "
+                   f"(within rtol {SHARD_RTOL:g} atol {SHARD_ATOL:g}: "
+                   f"{lock['close_3_after']})")
+    print(f"{head} on {card}: from the collected state at step "
+          f"{RANK_MARKS[-1]}, each tier distributed from it and run {steps} "
+          f"graph steps; steps/s (rank 0's clock, fenced) spawn "
+          f"{rates['spawn'][0]:.2f}, compact {rates['compact'][0]:.2f}, "
+          f"compact {rates['compact'][1]:.2f}, spawn {rates['spawn'][1]:.2f};"
+          f" in lockstep the two tiers' states are bitwise equal through "
+          f"step {lock['bitwise_through']} of {steps}: {parted}; final "
+          f"states bitwise equal {r0['final_bitwise']} (max|dx| "
+          f"{r0['final_max_dx']:.3e}), mean rho spawn {dens[0]:.2f}, "
+          f"compact {dens[1]:.2f} ({100 * share:.4f} %); compact-tier graph "
+          f"vs {steps} eager steps bitwise on every rank: "
+          f"{[all(r['tiers']['graph_vs_eager'].values()) for r in ranks]}")
+    total: dict = {}
+    for r, res in enumerate(ranks):
+        t = res["tiers"]
+        for name in ("spawn", "compact"):
+            e = t[name]
+            print(f"{head} rank {r} {name} tier: local slots {e['slots']} "
+                  f"(capacity {e['capacity']} + 2 x ghosts "
+                  f"{e['ghost_capacity']}), migration {e['mig_capacity']}; "
+                  f"first call (warm-up, capture, {steps} steps) "
+                  f"{e['first_s']:.4f} s; {NCCL_PROFILE_STEPS} steps "
+                  f"profiled: {_tier_prof_txt(e['profile'])}; peak memory "
+                  f"allocated {e['peak_gib']:.3f} GiB, "
+                  f"{e['allocated_after_release_gib']:.3f} GiB after its "
+                  f"release; balance_min_over_mean {e['balance']:.6f}; "
+                  f"this rank's stats {e['stats'][r]}; launches "
+                  f"{e['launches']}")
+        for k, v in t["compact"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    bad = []
+    for r, res in enumerate(ranks):
+        t = res["tiers"]
+        if not all(t["graph_vs_eager"].values()):
+            bad.append(f"rank {r}: the compact tier's graph left its eager "
+                       f"loop's bits {t['graph_vs_eager']}")
+        a, b = t["spawn"], t["compact"]
+        if not (b["slots"] < a["slots"] and b["peak_gib"] < a["peak_gib"]):
+            bad.append(f"rank {r}: the compact tier is not smaller")
+        want = dict.fromkeys(SOLVE_KERNELS, 3 * (steps + WARMUP_STEPS))
+        if _nonzero(b["launches"]) != want:
+            bad.append(f"rank {r}: compact launches {b['launches']}")
+    for name in ("spawn", "compact"):
+        st = torch.tensor(r0[name]["stats"])
+        if st[:, 1:].sum() or int(st[:, 0].sum()) != n \
+                or torch.tensor(r0[name]["diag"])[:, 1:].sum():
+            bad.append(f"{name}: stats {r0[name]['stats']}")
+    if part is None:
+        if lock["bitwise_through"] != steps or not r0["final_bitwise"]:
+            bad.append("the tiers' bounds agree but their states differ")
+    elif lock["bitwise_through"] != part - 1 or not lock["close_3_after"] \
+            or not share <= DENS_MEAN_RTOL:
+        bad.append(f"the tiers differ beyond the move rule's part: {lock}")
+    if bad:
+        print(f"{head} FAILED: {bad}")
+        failures.append(f"{head}: {bad}")
+    return total
+
+
+def phase_tier_kernels(device, cfg, path: str, D: int, rank: int,
+                       witnesses: dict) -> dict:
+    """The nine forms on the local set and restricted plans that rank
+    `rank` of D built at the compact tier's first step (saved at `path` by
+    _record_local_plans): against their plain versions at the restricted
+    checks' tolerances, the project forms with mxu_proj with the float64
+    witness (_proj_witness, into `witnesses`), two launches bitwise equal,
+    the counters back at 0, each beside its bound. Returns {counter:
+    (max|err|, ms, plain ms, bound ms, bound by)}."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    z = torch.load(path)
+    p4, n = z["p4"].to(device), z["n"]
+    plan_d, plan_p = (cuda_pbf.WindowPlan(
+        ranges=z[f"{k}_ranges"].to(device),
+        n_overflow=torch.zeros((), dtype=torch.int32, device=device),
+        seg_prefix=z[f"{k}_seg_prefix"].to(device),
+        seg_len=z[f"{k}_seg_len"].to(device)) for k in ("d", "p"))
+    lens = (plan_d.ranges[..., 1] - plan_d.ranges[..., 0]).sum(dim=1)
+    head = f"[tiers] dam1m D={D}"
+    print(f"{head} compact tier, rank {rank}'s local set at step "
+          f"{RANK_MARKS[-1]}: {n} rows ({z['valid']} valid, the rest "
+          f"padding), {lens.numel()} chunks, {int((lens > 0).sum())} with "
+          f"candidates for the density forms; no window reaches the "
+          f"padding: {int(plan_d.ranges[..., 1].max()) <= z['valid']}")
+    if int(plan_d.ranges[..., 1].max()) > z["valid"] \
+            or int(plan_p.ranges[..., 1].max()) > z["valid"]:
+        raise AssertionError(f"{head}: a window reaches a padding row")
+    tag = f" compact tier rank {rank}:"
+    fp, d_k = _fp32_kernels(cfg, p4, plan_d, n, RANK_MARKS[-1], 1,
+                            plan_p=plan_p, tag=tag, head=head)
+    fp.update(_tc_kernels(cfg, p4, d_k, plan_d, n, RANK_MARKS[-1], 1,
+                          plan_p=plan_p, tag=tag, head=head,
+                          witnesses=witnesses))
+    return fp
+
+
 def _check_switches(card: str, ranks: list[dict]) -> None:
     from pdb_sph_tpu_torch.geometry import KernelGeometry
 
@@ -2258,36 +2709,73 @@ def _check_cell(card: str, ranks: list[dict], n: int, table: dict) -> None:
         raise AssertionError("[nccl] the cell backend left the window's")
 
 
-def phase_nccl_cli(card: str, D: int, out_dir: str) -> dict:
-    """The runner on D cards at the row's size, with metrics, frames, a GIF
-    and a checkpoint, then its resume ending on a partial chunk; each rank
-    of each run captures one graph and allocates one pair-kernel scratch,
-    counted inside the rank. Returns the ranks' summed launches."""
-    from pdb_sph_tpu_torch import cli
+def _tier_caps(pcfg) -> list:
+    return [pcfg.capacity, pcfg.ghost_capacity, pcfg.mig_capacity]
+
+
+def phase_nccl_cli(card: str, D: int, out_dir: str,
+                   failures: list) -> dict:
+    """The runner on D cards at the row's size with the JAX tier flags:
+    metrics, frames, a GIF and a checkpoint, the re-tier at
+    NCCL_CLI_RETIER; its resume past --retier-at, which re-tiers at once
+    and ends on a partial chunk; then from the run's checkpoint a compact
+    tier whose ghost buffers overflow (it falls back to the spawn tier,
+    rc 0) and one with forced migration overflow (rc 2). Each `retier`
+    record's capacities are ParallelConfig.compact's on the state the
+    rank saved at the re-tier; each tier a rank runs captures one graph
+    and allocates one pair-kernel scratch (the programs of a tier are built
+    at its first chunk, so a resume that re-tiers at once builds the
+    compact tier alone), counted inside the rank. A run that fails a check
+    adds to `failures`; the next run goes on. Returns the ranks' summed
+    launches."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch import cli, interop
+    from pdb_sph_tpu_torch.parallel import sharded
 
     n, wall = NCCL_ROWS["dam1m"]
+    cfg = _nccl_cfg(n, wall)
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     ck, fr = os.path.join(out_dir, "ck.npz"), os.path.join(out_dir, "fr")
     gif = os.path.join(out_dir, "run.gif")
     common = ["--devices", str(D), "--device", "cuda"]
+    retier = ["--retier-at", str(NCCL_CLI_RETIER)]
+    forced = ["--resume", ck, "--steps", str(NCCL_CLI_FORCED_STEPS),
+              "--metrics-every", str(NCCL_CLI_EVERY), "--retier-at",
+              str(NCCL_CLI_STEPS)]
+    end = NCCL_CLI_STEPS
+    # name -> (argv, forced overflow, rc, the steps of its progress
+    # records, its events, graph captures = scratches a rank)
     runs = {
-        "run": ["--scene", "dam_break", "--n", str(n), "--wall", str(wall),
-                "--grid-width", str(NCCL_TABLE["grid_width"]), "--steps",
-                str(NCCL_CLI_STEPS), "--metrics-every", str(NCCL_CLI_EVERY),
-                "--render-every", str(NCCL_CLI_EVERY), "--width", "320",
-                "--height", "240", "--out", fr, "--gif", gif,
-                "--checkpoint", ck],
-        "resume": ["--resume", ck, "--steps", str(NCCL_CLI_RESUME),
-                   "--chunk", str(NCCL_CLI_CHUNK), "--metrics-every",
-                   str(NCCL_CLI_CHUNK)]}
+        "run": (["--scene", "dam_break", "--n", str(n), "--wall", str(wall),
+                 "--grid-width", str(NCCL_TABLE["grid_width"]), "--steps",
+                 str(end), "--metrics-every", str(NCCL_CLI_EVERY),
+                 "--render-every", str(NCCL_CLI_RENDER), "--width", "320",
+                 "--height", "240", "--out", fr, "--gif", gif,
+                 "--checkpoint", ck, *retier, *JAX_TIER_FLAGS], "", 0,
+                list(range(NCCL_CLI_EVERY, end + 1, NCCL_CLI_EVERY)),
+                ["retier"], 2),
+        "resume": (["--resume", ck, "--steps", str(NCCL_CLI_RESUME),
+                    "--chunk", str(NCCL_CLI_CHUNK), "--metrics-every",
+                    str(NCCL_CLI_CHUNK), *retier], "", 0,
+                   [end + NCCL_CLI_CHUNK, end + NCCL_CLI_RESUME],
+                   ["retier"], 1),
+        "ghost_fallback": (forced, "ghost", 0,
+                           list(range(end + NCCL_CLI_EVERY,
+                                      end + NCCL_CLI_FORCED_STEPS + 1,
+                                      NCCL_CLI_EVERY)),
+                           ["retier", "tier_fallback"], 2),
+        "migration_overflow": (forced, "migration", 2,
+                               [end + NCCL_CLI_EVERY], ["retier"], 1)}
     total: dict = {}
     real = cli._mesh_rank
-    for name, argv in runs.items():
+    for name, (argv, force, want_rc, steps, tier_events, tiers) in \
+            runs.items():
         counts = os.path.join(out_dir, f"counts_{name}")
         os.makedirs(counts)
         metrics = os.path.join(out_dir, f"{name}.jsonl")
         os.environ[RANK_COUNTS_ENV] = counts
+        os.environ[RANK_FORCE_ENV] = force
         cli._mesh_rank = _counted_mesh_rank
         try:
             t0 = time.perf_counter()
@@ -2296,6 +2784,7 @@ def phase_nccl_cli(card: str, D: int, out_dir: str) -> dict:
         finally:
             cli._mesh_rank = real
             os.environ.pop(RANK_COUNTS_ENV, None)
+            os.environ.pop(RANK_FORCE_ENV, None)
         per_rank = []
         for r in range(D):
             with open(os.path.join(counts, f"rank{r}.json")) as f:
@@ -2303,46 +2792,84 @@ def phase_nccl_cli(card: str, D: int, out_dir: str) -> dict:
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
         prog = [r for r in records if r["event"] == "progress"]
+        tier_recs = [r for r in records
+                     if r["event"] in ("retier", "tier_fallback")]
         # a record off the diagnostics cadence carries no density
         dens = [p for p in prog if "mean_density" in p][-1]
         done = records[-1]
-        print(f"[nccl] runner D={D} {name}: {' '.join(argv + common)}: rc "
-              f"{rc} in {secs:.1f} s; steps "
-              f"{[p['step'] for p in prog]}; {done.get('steps_per_sec', 0):.2f} "
-              f"steps/s over the run ({done.get('wall_seconds', 0):.3f} s, "
-              f"frames, GIF and checkpoint included), median chunk "
+        print(f"[nccl] runner D={D} {name}: {' '.join(argv + common)}"
+              f"{f' (forced {force} overflow on the compact tier)' if force else ''}"
+              f": rc {rc} in {secs:.1f} s; steps {[p['step'] for p in prog]}; "
+              f"{done.get('steps_per_sec', 0):.2f} steps/s over the run "
+              f"({done.get('wall_seconds', 0):.3f} s, frames, GIF and "
+              f"checkpoint included), median chunk "
               f"{statistics.median(p['steps_per_sec'] for p in prog):.2f} "
-              f"steps/s on {card}; last record: active "
-              f"{prog[-1]['per_shard_active']}, overflows "
-              f"{prog[-1]['overflows']}; mean rho {dens['mean_density']:.2f} "
-              f"at step {dens['step']}; captures and "
-              f"scratches a rank "
+              f"steps/s on {card}; chunk rates by step "
+              f"{[(p['step'], round(p['steps_per_sec'], 2)) for p in prog]}; "
+              f"last record: active {prog[-1]['per_shard_active']}, "
+              f"overflows {prog[-1]['overflows']}; mean rho "
+              f"{dens['mean_density']:.2f} at step {dens['step']}; tier "
+              f"records {[{k: v for k, v in t.items() if k != 'geom'} for t in tier_recs]}"
+              f"; captures and scratches a rank "
               f"{[(c['captures'], c['scratches']) for c in per_rank]}")
-        if rc != 0 or done["event"] != "done":
-            raise AssertionError(f"runner D={D} {name}: rc {rc}, {done}")
-        if any(c["captures"] != 1 or c["scratches"] != 1 for c in per_rank):
-            raise AssertionError(f"runner D={D} {name}: not one capture and "
-                                 f"one scratch a rank: {per_rank}")
+        bad = []
+        if rc != want_rc or [p["step"] for p in prog] != steps \
+                or [t["event"] for t in tier_recs] != tier_events:
+            bad.append(f"rc {rc}, steps {[p['step'] for p in prog]}, tier "
+                       f"records {tier_recs}")
+        if want_rc == 0 and done["event"] != "done":
+            bad.append(f"last record {done}")
+        if any(c["captures"] != tiers or c["scratches"] != tiers
+               for c in per_rank):
+            bad.append(f"not {tiers} captures and scratches a rank (one a "
+                       f"tier): {per_rank}")
+        # the state each retier record sized its tier from, as rank 0 saw
+        # it, sized again here; the old tier is the spawn tier of the run's
+        # start (the spawn, or the resumed checkpoint)
+        retier_rec = tier_recs[0] if tier_recs else {"capacity": []}
+        st = interop.state_from_numpy(*torch.load(
+            os.path.join(counts, "retier0.pt")), 0, "cpu")
+        old = sharded.ParallelConfig.create(
+            cfg, D, state=pbf.spawn(cfg, "dam_break", seed=0, device="cpu")
+            if name == "run" else st)
+        want = _tier_caps(sharded.ParallelConfig.compact(cfg, D, state=st,
+                                                         prior=old))
+        if force == "ghost":
+            want[1] = max(128, want[1] // 4 // 128 * 128)
+        got = [list(x) for x in zip(retier_rec["capacity"],
+                                    retier_rec.get("ghost_capacity", []),
+                                    retier_rec.get("mig_capacity", []))]
+        if got != [_tier_caps(old), want] or retier_rec.get("step") != (
+                NCCL_CLI_RETIER if name == "run" else end) \
+                or st.x.shape[0] != n:
+            bad.append(f"retier record {retier_rec}, tiers "
+                       f"{[_tier_caps(old), want]}")
+        clean = prog if not force else prog[1:]
         if any(p["nan_detected"] or any(p["overflows"]) or p["n_escaped"]
-               or sum(p["per_shard_active"]) != n for p in prog):
-            raise AssertionError(f"runner D={D} {name}: bad record")
+               or sum(p["per_shard_active"]) != n for p in clean):
+            bad.append("a record with NaN, overflow, escapes or lost "
+                       "particles")
+        if force and not any(prog[0]["overflows"]):
+            bad.append("no overflow on the forced compact tier")
+        if bad:
+            print(f"[nccl] runner D={D} {name} FAILED: {bad}")
+            failures.append(f"runner D={D} {name}: {bad}")
         for c in per_rank:
             for k, v in c["launches"].items():
                 total[k] = total.get(k, 0) + v
     want_png = [f"frame_{s:06d}.png"
-                for s in range(0, NCCL_CLI_STEPS + 1, NCCL_CLI_EVERY)]
+                for s in range(0, NCCL_CLI_STEPS + 1, NCCL_CLI_RENDER)]
     if sorted(os.listdir(fr)) != want_png or not os.path.getsize(gif):
-        raise AssertionError(f"runner D={D}: frames {sorted(os.listdir(fr))}")
-    if [p["step"] for p in prog] != [NCCL_CLI_STEPS + NCCL_CLI_CHUNK,
-                                     NCCL_CLI_STEPS + NCCL_CLI_RESUME]:
-        raise AssertionError(f"runner D={D}: resume steps "
-                             f"{[p['step'] for p in prog]}")
+        failures.append(f"runner D={D}: frames {sorted(os.listdir(fr))}")
     return total
 
 
 def main_ranks(n_ranks: int) -> int:
     """The [nccl] mode: phases 1-2, then the sharded rollout on NCCL ranks
-    at D = 2 and D = `n_ranks` (the D = 4 parts at the largest)."""
+    at D = 2 and D = `n_ranks` (the D = 4 parts at the largest), each with
+    its [tiers] part; the kernels line of the mode's paths, each kernel
+    measured on the compact tier's local set of rank TIER_RANK of D =
+    `n_ranks`."""
     if torch.cuda.device_count() < n_ranks:
         print(f"chip_smoke: --ranks {n_ranks} needs {n_ranks} cards, torch "
               f"sees {torch.cuda.device_count()}", file=sys.stderr)
@@ -2361,10 +2888,12 @@ def main_ranks(n_ranks: int) -> int:
 
     n, wall = NCCL_ROWS["dam1m"]
     cfg = _nccl_cfg(n, wall)
-    refs, state60 = _stepper_refs(device, cfg, RANK_MARKS, keep=SETTLE_STEPS)
+    refs, state60 = _stepper_refs(
+        device, cfg, (*RANK_MARKS, RANK_MARKS[-1] + NCCL_STEPS),
+        keep=SETTLE_STEPS)
     # the pair kernels on a rank's restricted plans at the row's size
-    phase_restricted(device, state60, cfg, max(NCCL_DS), NCCL_RESTRICTED_RANK,
-                     head="[nccl] dam1m")
+    restricted = phase_restricted(device, state60, cfg, max(NCCL_DS),
+                                  NCCL_RESTRICTED_RANK, head="[nccl] dam1m")
     del state60
     torch.cuda.empty_cache()
     phase_nccl_single(device, card, out_dir)
@@ -2381,32 +2910,88 @@ def main_ranks(n_ranks: int) -> int:
                                       // 8) * 8,
                  cell_capacity=cap, block=cap)
     n2, wall2 = NCCL_ROWS["dam2m"]
-    launches: dict = {}
+    plans = os.path.join(out_dir, "tiers_plans.pt")
+    # every path's launches, summed over its ranks, and of them the compact
+    # tier's in [tiers]
+    launches, compact = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+
+    def add(into: dict, counts: dict) -> None:
+        for k, v in counts.items():
+            into[k] += v
+
+    # the [tiers] checks and the runner's report their failures here, so
+    # that one run shows every one of them; the script fails at its end
+    failures: list = []
+    tier_kern, witnesses = None, {}
     for D in sorted({*NCCL_DS, n_ranks}):
         if D > n_ranks:
             continue
-        extra = {} if D != n_ranks else {
-            "switch_steps": NCCL_SWITCH_STEPS,
-            "large": {"row": "dam2m", "n": n2, "wall": wall2,
-                      "settle": SCALE_SETTLE, "steps": SCALE_STEPS,
-                      "profile_steps": NCCL_PROFILE_STEPS,
-                      "trace_dir": out_dir},
-            "cell": {"n": N_MAIN, "table": table, "steps": CELL_STEPS}}
-        phase_two_ranks(device, card, cfg, D, "nccl",
-                        [f"cuda:{r}" for r in range(D)], refs,
-                        head="[nccl] dam1m")
+        got, st = phase_two_ranks(device, card, cfg, D, "nccl",
+                                  [f"cuda:{r}" for r in range(D)], refs,
+                                  head="[nccl] dam1m",
+                                  compact_steps=NCCL_STEPS)
+        add(launches, got)
+        state = os.path.join(out_dir, f"tiers_state_d{D}.pt")
+        torch.save(tuple(t.cpu() for t in st[:3]), state)
+        extra = {"tiers": {"n": n, "wall": wall, "state": state,
+                           "steps": NCCL_STEPS,
+                           "profile_steps": NCCL_PROFILE_STEPS,
+                           "trace_dir": out_dir}}
+        if D == n_ranks:
+            extra["tiers"].update(plans=plans, plans_rank=TIER_RANK)
+            extra.update({
+                "switch_steps": NCCL_SWITCH_STEPS,
+                "large": {"row": "dam2m", "n": n2, "wall": wall2,
+                          "settle": SCALE_SETTLE, "steps": SCALE_STEPS,
+                          "profile_steps": NCCL_PROFILE_STEPS,
+                          "trace_dir": out_dir},
+                "cell": {"n": N_MAIN, "table": table, "steps": CELL_STEPS}})
         ranks = phase_nccl(card, D, out_dir, extra)
+        for r in ranks:
+            add(launches, r["graph_launches"])
+        got = phase_tiers(card, D, ranks, n, failures)
+        add(launches, got)
+        add(compact, got)
         if D == n_ranks:
             _check_switches(card, ranks)
             _check_large(card, ranks, n2, wall2)
             _check_cell(card, ranks, N_MAIN, table)
-    for k, v in phase_nccl_cli(card, n_ranks,
-                               os.path.join(out_dir, "cli")).items():
-        launches[k] = launches.get(k, 0) + v
+            for r in ranks:
+                for s in r["switches"].values():
+                    add(launches, s["launches"])
+            try:
+                tier_kern = phase_tier_kernels(device, cfg, plans, D,
+                                               TIER_RANK, witnesses)
+            except AssertionError as e:
+                failures.append(f"[tiers] the nine forms: {e}")
+    runner = phase_nccl_cli(card, n_ranks, os.path.join(out_dir, "cli"),
+                            failures)
+    add(launches, runner)
     print(f"[nccl] the runner's launches summed over ranks and runs: "
-          f"{_nonzero(launches)}")
+          f"{_nonzero(runner)}")
+    if failures:
+        raise AssertionError(f"{len(failures)} checks failed: {failures}")
+    origin = ("rollout_ranks with its compact chunk, the graph runs of "
+              "[nccl], [tiers]' compact tier, the switch geometries, the "
+              "runner's four runs; summed over the ranks")
+    report = [
+        {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
+         "replaces": KERNELS[k][2], "launches": launches[k],
+         "launches_from": origin, "launches_compact_tier": compact[k],
+         "max_abs_err": tier_kern[k][0], "ms": tier_kern[k][1],
+         "plain_ms": tier_kern[k][2], "bound_ms": tier_kern[k][3],
+         "bound_by": tier_kern[k][4], "library_ms": None,
+         "measured_on": f"the compact tier's local set of rank {TIER_RANK} "
+                        f"of D = {n_ranks}, dam1m, step {RANK_MARKS[-1]}",
+         "restricted_spawn_ms": restricted[k][0],
+         "restricted_spawn_bound_ms": restricted[k][1],
+         **({"float64_witness": witnesses[k]} if k in witnesses else {})}
+        for k in KERNELS]
+    if any(r["launches"] <= 0 for r in report):
+        raise AssertionError(f"a kernel was not launched: {report}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s from the start of "
           "the script")
+    print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2460,7 +3045,7 @@ def main(argv=None) -> int:
     phase_graph(device, card, graph_dir)
     phase_graph(device, card, graph_dir, geom=tc_geom)
     fast = phase_fastpath(device, card)
-    ranks = phase_two_ranks(device, card)
+    ranks, _ = phase_two_ranks(device, card)
     phase_cell(device, os.path.join(build_dir, "chip_smoke_cell"))
     phase_settle(device)
     tc_settle = phase_settle(device, geom=tc_geom)

@@ -13,7 +13,13 @@ rank in-process (its fast path), or N ranks, one process each
 (`parallel/launch.py`), NCCL with one card a rank or gloo on the CPU;
 rank 0 does all the I/O. `--fake-devices N`, JAX's mesh without chips, is
 `--device cpu --devices N`. A rank that fails, or stalls for
-`parallel.launch.STALL_S` seconds, fails the run.
+`parallel.launch.STALL_S` seconds, fails the run. `--retier-at N` moves
+the run to the compact tier at the first chunk boundary at or past step
+N; ghost or plan/table overflow there falls back to a spawn tier made from
+the current state, with a warning and a `tier_fallback` record. JAX's tier
+flags carry across: `--retier-maxlanes` and the TPU kernels' keys of
+`--retier-geom` (`cc_d`, `nbuf`, ...) are dropped, and an `own` without a
+kernel runs the port's default, each with a note on stderr.
 
 Examples:
     python -m pdb_sph_tpu_torch.cli --scene dam_break --n 80000 --steps 600
@@ -102,14 +108,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "0 disables")
     p.add_argument("--retier-maxlanes", type=int, default=0,
                    help="JAX's lane budget at the re-tier; the port's "
-                        "window plan has no lane budget, so a nonzero "
-                        "value exits 2")
+                        "window plan has exact ranges and no lane budget, "
+                        "so the value is dropped with a note")
     p.add_argument("--retier-geom", type=str, default="",
                    help="with --retier-at: comma-separated KernelGeometry "
                         "overrides of the port (own, seg, mxu_sum, "
                         "mxu_rd2, mxu_proj) for the compact tier, e.g. "
                         "'own=128,seg=1024'; the spawn tier keeps the run's "
-                        "geometry")
+                        "geometry. JAX's TPU-only keys (cc_d, cc_p, nbuf, "
+                        "gb, maxlanes, chains_d, chains_p, ncopies) are "
+                        "dropped and an own without a kernel runs the "
+                        "port's default, each with a note")
     p.add_argument("--allow-overflow", action="store_true",
                    help="downgrade the neighbor-structure and exchange "
                         "overflow abort (rc=2) to a warning")
@@ -332,20 +341,31 @@ def _run(args, cfg: SimConfig, state, device: torch.device,
 # ---------------------------------------------------------------------------
 
 def _parse_geom(spec: str) -> dict:
-    """--retier-geom 'key=int,...' -> KernelGeometry overrides; raises
-    ValueError on a key the port's geometry lacks or a value it refuses."""
+    """--retier-geom 'key=int,...' -> KernelGeometry overrides, under the
+    rule interop.config_from_fields applies to a JAX config: a key of JAX's
+    TPU-only geometry (interop.TPU_GEOM_FIELDS) is dropped and an `own` the
+    kernels lack becomes the port's default, each with a note on stderr.
+    Raises ValueError on a key neither package has, a value that is not an
+    integer, or a geometry the port refuses."""
     fields = {f.name: f.default for f in dataclasses.fields(KernelGeometry)}
     out = {}
     for kv in filter(None, spec.split(",")):
         k, _, v = kv.partition("=")
         k = k.strip()
-        if k not in fields:
-            raise ValueError(f"{k!r} is not a field of the port's "
-                             f"KernelGeometry ({', '.join(fields)})")
+        if k not in fields and k not in interop.TPU_GEOM_FIELDS:
+            raise ValueError(f"{k!r} is a field of neither package's "
+                             f"KernelGeometry (the port's: "
+                             f"{', '.join(fields)})")
         try:
             val = int(v)
         except ValueError:
             raise ValueError(f"entry {kv!r} is not KEY=INT") from None
+        if k in interop.TPU_GEOM_FIELDS:
+            print(f"note: --retier-geom {k}={val}: the TPU kernels' knob "
+                  "has no counterpart in the port; dropped", file=sys.stderr)
+            continue
+        if k == "own":
+            val = interop.port_own(val)
         out[k] = bool(val) if isinstance(fields[k], bool) else val
     dataclasses.replace(KernelGeometry(), **out).validate()
     return out
@@ -360,10 +380,9 @@ def _main_mesh(args, device: torch.device) -> int:
               "window or cell", file=sys.stderr)
         return 2
     if args.retier_maxlanes:
-        print("error: --retier-maxlanes: the port's window plan has exact "
-              "ranges and no lane budget to tighten (use --retier-geom)",
-              file=sys.stderr)
-        return 2
+        print(f"note: --retier-maxlanes {args.retier_maxlanes}: the port's "
+              "window plan has exact ranges and no lane budget to tighten; "
+              "dropped", file=sys.stderr)
     try:
         geom_overrides = _parse_geom(args.retier_geom)
     except ValueError as e:
@@ -433,17 +452,12 @@ def _mesh_loop(group, device, args, backend: str, cfg: SimConfig, arrays,
         if lead:
             print(msg, file=sys.stderr)
 
-    def programs(c, pc, steps):
-        roll = sharded.make_sharded_rollout(c, pc, group, backend, steps,
-                                            device)
-        work = roll.stepper.work
-        return roll, sharded.make_sharded_diagnostics(
-            c, pc, group, backend, work.scratch if work else None)
-
     pcfg = sharded.ParallelConfig.create(cfg, D, state=state)
     cfg_active = cfg
-    rollout, density_diag = programs(cfg, pcfg, chunk)
     sst = sharded.distribute(cfg, pcfg, state, group, device)
+    # a tier's rollout (its stepper, scratch and, on a card, its graph) and
+    # diagnostics, built at the tier's first chunk
+    rollout = density_diag = None
     done = 0
 
     def collected():
@@ -452,9 +466,13 @@ def _mesh_loop(group, device, args, backend: str, cfg: SimConfig, arrays,
                                              dtype=torch.int32))
 
     def rebuild(new_pcfg, st, new_cfg):
+        """Move to another tier: the old tier's graph, buffers and scratch
+        are freed before the new tier allocates its own."""
         nonlocal pcfg, cfg_active, rollout, density_diag, sst
+        if rollout is not None:
+            rollout.release()
+        rollout = density_diag = sst = None
         pcfg, cfg_active = new_pcfg, new_cfg
-        rollout, density_diag = programs(cfg_active, pcfg, chunk)
         sst = sharded.distribute(cfg_active, pcfg, st, group, device)
 
     def tier_record(event, old, **extra):
@@ -484,6 +502,9 @@ def _mesh_loop(group, device, args, backend: str, cfg: SimConfig, arrays,
                                       geom=[dataclasses.asdict(cfg.geom),
                                             dataclasses.asdict(
                                                 cfg_active.geom)]))
+            if rollout is None:
+                rollout, density_diag = sharded.tier_programs(
+                    cfg_active, pcfg, group, backend, chunk, device)
             # the final partial chunk runs fewer steps on the same rollout
             this_chunk = min(chunk, args.steps - done)
             t0 = time.perf_counter()

@@ -244,8 +244,9 @@ class CapturedStep:
     kernel's persistent grid; its launches are real and count), then
     captures the body on `torch.cuda.graph`'s side stream. Whatever else
     the body reads (a Stepper's buffers and scratch, the constants) keeps
-    its address for the graph's lifetime. A failed capture or replay
-    raises: nothing falls back to running the body eagerly."""
+    its address for the graph's lifetime, which `release` ends. A failed
+    capture or replay raises: nothing falls back to running the body
+    eagerly."""
 
     def __init__(self, body: Callable, state: Sequence[torch.Tensor],
                  acc: Sequence[torch.Tensor]):
@@ -270,6 +271,12 @@ class CapturedStep:
         cuda_pbf.add_replays(self.launches, steps)
         return (tuple(t.clone() for t in self.state),
                 tuple(t.clone() for t in self.acc))
+
+    def release(self) -> None:
+        """Free the graph, and with it its memory pool, and the static
+        tensors; the step cannot replay afterwards."""
+        self.graph.reset()
+        self.state = self.acc = ()
 
 
 class Rollout:

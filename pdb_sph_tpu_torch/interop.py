@@ -19,6 +19,12 @@ from .state import SimState
 
 # the JAX KernelGeometry's fields that the port's geometry shares
 GEOM_FIELDS = ("own", "mxu_sum", "mxu_rd2", "mxu_proj")
+# the JAX KernelGeometry's fields that exist for the TPU kernels alone (the
+# Mosaic candidate blocks, DMA ring, grid batching, shifted copies and the
+# per-chunk lane budget): the port's windows are exact element ranges, so
+# nothing here has a counterpart, and a value given for one is dropped
+TPU_GEOM_FIELDS = ("cc_d", "cc_p", "nbuf", "gb", "maxlanes", "chains_d",
+                   "chains_p", "ncopies")
 
 
 def state_from_numpy(x, v, ids, step, device) -> SimState:
@@ -35,6 +41,17 @@ def state_from_numpy(x, v, ids, step, device) -> SimState:
 def state_to_numpy(state: SimState):
     """SimState -> (x, v, ids, step) numpy arrays on the host."""
     return tuple(t.detach().cpu().numpy() for t in state)
+
+
+def port_own(own: int) -> int:
+    """`own`, or the port's default where its kernels lack it (JAX allows
+    e.g. 96), with a note on stderr."""
+    if own in OWNS:
+        return own
+    print(f"note: own {own} has no kernel in the port (it has "
+          f"{', '.join(map(str, OWNS))}); running own {KernelGeometry.own}",
+          file=sys.stderr)
+    return KernelGeometry.own
 
 
 def config_from_fields(fields: dict) -> SimConfig:
@@ -60,12 +77,7 @@ def config_from_fields(fields: dict) -> SimConfig:
     geom = fields.get("geom")
     if geom is not None:
         shared = {k: geom[k] for k in GEOM_FIELDS if k in geom}
-        own = shared.get("own", KernelGeometry.own)
-        if own not in OWNS:
-            shared["own"] = KernelGeometry.own
-            print(f"note: own {own} has no kernel in the port (it has "
-                  f"{', '.join(map(str, OWNS))}); running own "
-                  f"{KernelGeometry.own}", file=sys.stderr)
+        shared["own"] = port_own(shared.get("own", KernelGeometry.own))
         kw["geom"] = KernelGeometry(**shared)
     cfg = SimConfig(**kw)
     cfg.validate()

@@ -301,18 +301,20 @@ def _candidates(ranges: torch.Tensor):
 
 def bf16_split(a: torch.Tensor):
     """float32 -> (hi, lo) bfloat16 pair with hi + lo ~= a to ~16 mantissa
-    bits; the port of `_bf16_split` (pdb_sph_tpu/ops/pallas_pbf.py:301)."""
+    bits; the port of `_bf16_split` (pdb_sph_tpu/ops/pallas_pbf.py:301).
+    A float64 `a` holding float32 values splits the same way."""
     hi = a.to(torch.bfloat16)
-    lo = (a - hi.float()).to(torch.bfloat16)
+    lo = (a - hi.to(a.dtype)).to(torch.bfloat16)
     return hi, lo
 
 
-def dot3(ah, al, bh, bl, dot) -> torch.Tensor:
+def dot3(ah, al, bh, bl, dot, dtype=torch.float32) -> torch.Tensor:
     """The 3-pass bf16 product of `_dot3` (pallas_pbf.py:308):
     hi*hi + (hi*lo + lo*hi), the lo*lo term dropped. `dot(a, b)` contracts
-    the pairs' float32 values; a product of two bf16 values is exact in
-    float32, so the forms differ only in the order of their sums."""
-    ah, al, bh, bl = (t.float() for t in (ah, al, bh, bl))
+    the pairs' values in `dtype`; a product of two bf16 values is exact in
+    float32, so the forms differ only in the order of their sums (and a
+    float64 `dtype` takes those sums without their float32 rounding)."""
+    ah, al, bh, bl = (t.to(dtype) for t in (ah, al, bh, bl))
     return dot(ah, bh) + (dot(ah, bl) + dot(al, bh))
 
 
@@ -376,7 +378,7 @@ def _pair_blocks(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
         cand = p4[idx]
         if split_rd2:
             dot = dot3(*bf16_split(mine[..., :3]), *bf16_split(cand[..., :3]),
-                       _xyz_dot)
+                       _xyz_dot, p4.dtype)
             rd2 = (_sq3(mine)[:, :, None] - (dot + dot)) + _sq3(cand)[:, None]
             d = None
         else:
@@ -506,7 +508,7 @@ def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
             acc_p = None
             for piece in _segments(plan, split, s.shape[-1]):
                 part = dot3(sh[..., piece], sl[..., piece], ch[:, piece],
-                            cl[:, piece], _cand_dot)
+                            cl[:, piece], _cand_dot, p4.dtype)
                 acc_p = part if acc_p is None else acc_p + part
             moved = own3 + k_proj * (own3 * row_sum(s)[..., None] - acc_p)
             moved = moved.unbind(-1)

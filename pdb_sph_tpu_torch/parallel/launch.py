@@ -17,6 +17,10 @@ behind.
 over the ranks (one card each unless the caller names other devices), roll
 it out in chunks, and return the collected state after each chunk with the
 chunk's stats and density diagnostics and each rank's kernel launches.
+It can move the run to the compact tier between two chunks, as the JAX
+package's two-tier flow does (`dryrun_multichip`, __graft_entry__.py:105-
+125): collect, `ParallelConfig.compact` on the collected state,
+distribute again, and one more rollout for the rest of the run.
 """
 
 from __future__ import annotations
@@ -130,24 +134,30 @@ def run(fn: Callable, n_ranks: int, devices: Sequence[str],
 
 def _rollout_rank(group: Group, device: torch.device, workdir: str,
                   cfg: SimConfig, arrays: tuple, chunks: Sequence[int],
-                  backend: str, pcfg) -> None:
+                  backend: str, pcfg, retier: int | None = None) -> None:
     from ..utils.timing import fence
-    from .sharded import (ParallelConfig, collect, distribute,
-                          make_sharded_diagnostics, make_sharded_rollout)
+    from .sharded import ParallelConfig, collect, distribute, tier_programs
 
     state = interop.state_from_numpy(*arrays, 0, "cpu")
     pcfg = pcfg or ParallelConfig.create(cfg, group.size, state=state)
     sst = distribute(cfg, pcfg, state, group, device)
-    # one rollout for the run: every chunk replays its stepper, scratch and
-    # (on NCCL ranks) graph, which the diagnostics share
-    rollout = make_sharded_rollout(cfg, pcfg, group, backend, chunks[0],
-                                   device)
-    work = rollout.stepper.work
-    density_diag = make_sharded_diagnostics(cfg, pcfg, group, backend,
-                                            work.scratch if work else None)
+    # one rollout a tier: every chunk replays its stepper, scratch and (on
+    # NCCL ranks) graph
+    rollout, density_diag = tier_programs(cfg, pcfg, group, backend,
+                                          chunks[0], device)
     cuda_pbf.reset_launches()
     out = {}
     for i, steps in enumerate(chunks):
+        if i == retier:
+            # the compact tier, sized from the state the last chunk left;
+            # the spawn tier's graph, buffers and scratch go first
+            rollout.release()
+            rollout = density_diag = sst = None
+            pcfg = ParallelConfig.compact(cfg, group.size, state=st,
+                                          prior=pcfg)
+            sst = distribute(cfg, pcfg, st, group, device)
+            rollout, density_diag = tier_programs(cfg, pcfg, group, backend,
+                                                  chunks[0], device)
         fence(device)
         t0 = time.perf_counter()
         sst, stats, diag = rollout(sst, steps)
@@ -168,15 +178,19 @@ def rollout_ranks(cfg: SimConfig, state: SimState, n_ranks: int,
                   chunks: Sequence[int], backend: str = "window",
                   devices: Sequence[str] | None = None,
                   comm: str | None = None, pcfg=None,
-                  timeout_s: float | None = None):
+                  timeout_s: float | None = None,
+                  retier: int | None = None):
     """Roll `state` out on `n_ranks` ranks, rank r on `devices[r]`
     (default: card r, which needs `n_ranks` cards; `["cpu"] * n_ranks` for
     CPU ranks), in chunks of `chunks[i]` steps, from
     `ParallelConfig.create(cfg, n_ranks, state=state)` unless `pcfg` is
-    given. Returns ([(SimState in id order on the CPU, stats (D, 5), diag
-    (D, 3), rank 0's seconds for the chunk, fenced, and the sharded density
-    diagnostics (D, 5) after it) after each chunk], [each rank's kernel
-    launch counts, the diagnostics' included])."""
+    given. With `retier` = i (0 < i < len(chunks)), chunk i and those after
+    it run on the compact tier: `ParallelConfig.compact(cfg, n_ranks,
+    state=<the state after chunk i - 1>, prior=pcfg)`. Returns ([(SimState
+    in id order on the CPU, stats (D, 5), diag (D, 3), rank 0's seconds for
+    the chunk, fenced, and the sharded density diagnostics (D, 5) after it)
+    after each chunk], [each rank's kernel launch counts, the diagnostics'
+    included])."""
     if devices is None:
         if torch.cuda.device_count() < n_ranks:
             raise RuntimeError(
@@ -185,10 +199,13 @@ def rollout_ranks(cfg: SimConfig, state: SimState, n_ranks: int,
                 f"{n_ranks} to run them on the CPU")
         devices = [f"cuda:{r}" for r in range(n_ranks)]
     devices = list(devices)
+    if retier is not None and not 0 < retier < len(chunks):
+        raise ValueError(f"retier must name a chunk after the first of "
+                         f"{len(chunks)}, got {retier}")
     arrays = tuple(t.detach().cpu().numpy() for t in state[:3])
     with tempfile.TemporaryDirectory(prefix="pbf_ranks_") as workdir:
         run(_rollout_rank, n_ranks, devices, comm, timeout_s, workdir,
-            args=(cfg, arrays, list(chunks), backend, pcfg))
+            args=(cfg, arrays, list(chunks), backend, pcfg, retier))
         with np.load(os.path.join(workdir, "result.npz")) as z:
             res = {k: z[k] for k in z.files}
         launches = []

@@ -33,9 +33,24 @@ since every rank replays the same number of steps. gloo ranks stay
 eager: gloo stages every collective through host memory, which waits for
 the card.
 
-Deliberate differences from the JAX module (its ADVICE faults): the move
-rule donates no strip whose population exceeds `mig_capacity`
-(`_move_bounds`), so a balance move cannot overflow the migration buffer.
+Two tiers size the buffers, as in JAX (sharded.py:244-292): the spawn
+tier (`ParallelConfig.create`, slack for the collapse to come) and, once
+the fluid settles, the compact tier (`ParallelConfig.compact`, 1.1x the
+current state's occupancy). A run moves between them by collect ->
+`ParallelConfig` -> distribute and a new rollout, whose graph is captured
+anew; `ShardedRollout.release` frees the old tier's graph, buffers and
+scratch first (`launch.rollout_ranks(retier=)`, the runner's
+`--retier-at` and its fallback). From one state the two tiers hold the
+same particles in the same slots and sort them to the same valid prefix:
+only the padding after it differs, which no window reaches, so their steps
+agree bit for bit as long as the move rule makes the same moves (it reads
+one capacity: no strip over the tier's mig_capacity is donated).
+
+Deliberate differences from the JAX module, both in `_move_bounds`: the
+move rule donates no strip whose population exceeds `mig_capacity`, so a
+balance move cannot overflow the migration buffer (an ADVICE fault); and
+it has no recipient limit, where JAX keeps the recipient under capacity -
+capacity / 8, which stops the boundaries of the compact tier.
 """
 
 from __future__ import annotations
@@ -295,16 +310,23 @@ def _move_scales(cfg: SimConfig) -> tuple[int, ...]:
 
 
 def _move_bounds(cfg: SimConfig, pcfg: ParallelConfig, brow: torch.Tensor,
-                 g: torch.Tensor, cap_lim: int) -> torch.Tensor:
+                 g: torch.Tensor) -> torch.Tensor:
     """The move rule of `_update_bounds` (sharded.py:465-515) as a pure
     function of the gathered populations g (D, 1 + 2 * scales): per rank
     its load, then the populations of its first and last strip at each
     scale. Boundary i moves toward the heavier side by the largest strip
     that keeps |L - R| non-increasing, with the donor at least the minimum
-    width and the recipient under cap_lim; even boundaries move on even
-    steps. The port's one difference: a strip of more than mig_capacity
-    particles is not donated (it would overflow the migration buffer), and
-    the next finer scale is tried instead."""
+    width; even boundaries move on even steps. A strip of more than
+    mig_capacity particles is not donated (it would overflow the migration
+    buffer), and the next finer scale is tried instead.
+
+    JAX also keeps the recipient under capacity - capacity / 8. The port
+    has no recipient limit: 2 strip <= L - R gives R + strip <= L <=
+    capacity, so a move never raises the larger load, and that margin
+    guards nothing. On the compact tier, sized at 1.1x the worst slab, the
+    margin lies under a balanced rank's load (0.9625x the worst slab): the
+    boundaries stop, the loads drift with the flow, and a rank overflows
+    its capacity (the merge drops particles)."""
     D = pcfg.n_devices
     min_w = _min_slab_keys(cfg)
     ctr, b = brow[0], brow[1:]
@@ -321,11 +343,9 @@ def _move_bounds(cfg: SimConfig, pcfg: ParallelConfig, brow: torch.Tensor,
         up_rc = g[ii, 1 + 2 * k]         # rank i's first strip, given up
         free = shift == 0
         can_down = (free & eligible & (diff > 0) & (2 * down_rc <= diff)
-                    & (w_left >= min_w + s) & (R + down_rc <= cap_lim)
-                    & (down_rc <= pcfg.mig_capacity))
+                    & (w_left >= min_w + s) & (down_rc <= pcfg.mig_capacity))
         can_up = (free & eligible & (diff < 0) & (2 * up_rc <= -diff)
-                  & (w_right >= min_w + s) & (L + up_rc <= cap_lim)
-                  & (up_rc <= pcfg.mig_capacity))
+                  & (w_right >= min_w + s) & (up_rc <= pcfg.mig_capacity))
         shift = torch.where(can_down, -s, torch.where(can_up, s, shift))
     b = b.clone()
     b[1:D] += shift.to(b.dtype)
@@ -346,10 +366,10 @@ def _strip_pops(cfg: SimConfig, brow: torch.Tensor, rank: int,
 
 def _update_bounds(cfg: SimConfig, pcfg: ParallelConfig, group: Group,
                    brow: torch.Tensor, active: torch.Tensor,
-                   key: torch.Tensor, cap_lim: int) -> torch.Tensor:
+                   key: torch.Tensor) -> torch.Tensor:
     """Gather every rank's load and strip populations, then move."""
     g = group.all_gather(_strip_pops(cfg, brow, group.rank, active, key))
-    return _move_bounds(cfg, pcfg, brow, g, cap_lim)
+    return _move_bounds(cfg, pcfg, brow, g)
 
 
 def chunk_keep(cfg: SimConfig, sorted_cid: torch.Tensor, lo, hi):
@@ -385,6 +405,22 @@ class _Work(NamedTuple):
     scratch: cuda_pbf.PairScratch | None
 
 
+def _window_plans(cfg: SimConfig, cid, z_bounds):
+    """(order, plan, plan_d, plan_p) of a rank's local set with cell ids
+    `cid`: its stable cell sort (whose first entries are the valid slots,
+    in input order, and whose tail the invalid ones, a padding that no
+    window reaches), the window plan of the sorted ids, and that plan
+    restricted for the density and the project pass (the plan itself
+    without z_bounds)."""
+    sorted_cid, order = sort_cells(cfg, cid)
+    plan = plan_d = plan_p = cuda_pbf.build_plan(cfg, sorted_cid)
+    if z_bounds is not None:
+        keep_d, keep_p = chunk_keep(cfg, sorted_cid, *z_bounds)
+        plan_d = cuda_pbf.restrict_plan(cfg, plan, keep_d)
+        plan_p = cuda_pbf.restrict_plan(cfg, plan, keep_p)
+    return order, plan, plan_d, plan_p
+
+
 def _solve_window(cfg: SimConfig, cap: int, p, active, exchange, ghosts0,
                   gok0, z_bounds, work: _Work):
     """One rank's constraint solve on the pair kernels (the JAX
@@ -397,13 +433,8 @@ def _solve_window(cfg: SimConfig, cap: int, p, active, exchange, ghosts0,
     slots. Returns (p_solved, plan_overflow)."""
     combined, ok, cid = _local_set(cfg, p, active, ghosts0, gok0)
     n_loc = combined.shape[0]
-    sorted_cid, order = sort_cells(cfg, cid)
+    order, plan, plan_d, plan_p = _window_plans(cfg, cid, z_bounds)
     inv = _inverse_permutation(order)
-    plan = plan_d = plan_p = cuda_pbf.build_plan(cfg, sorted_cid)
-    if z_bounds is not None:
-        keep_d, keep_p = chunk_keep(cfg, sorted_cid, *z_bounds)
-        plan_d = cuda_pbf.restrict_plan(cfg, plan, keep_d)
-        plan_p = cuda_pbf.restrict_plan(cfg, plan, keep_p)
     ok_s = ok[order][:, None]
     a, b = work.bufs
     for it in range(cfg.solver_iters):
@@ -574,7 +605,7 @@ def _shard_step(cfg: SimConfig, pcfg: ParallelConfig, backend: str,
     active = ids >= 0
     if D > 1 and pcfg.rebalance:
         brow = _update_bounds(cfg, pcfg, group, brow, active,
-                              _zxkey(cfg, x), cap_lim=cap - cap // 8)
+                              _zxkey(cfg, x))
     b = brow[1:]
 
     p, _ = predict(cfg, x, v)
@@ -732,6 +763,15 @@ class ShardedRollout:
         self.graphed = captures(self.stepper.device, group)
         self.captured: CapturedStep | None = None
 
+    def release(self) -> None:
+        """Free the graph (CapturedStep.release), the buffers and the
+        scratch, before another tier's rollout allocates its own; the
+        rollout cannot run afterwards."""
+        if self.captured is not None:
+            self.captured.release()
+        self.captured = None
+        self.stepper.work = None
+
     def __call__(self, sst: ShardedState, steps: int | None = None):
         steps = self.unroll_steps if steps is None else steps
         if steps < 1:
@@ -848,6 +888,23 @@ def make_sharded_diagnostics(cfg: SimConfig, pcfg: ParallelConfig,
                              scratch: cuda_pbf.PairScratch | None = None
                              ) -> ShardedDiagnostics:
     return ShardedDiagnostics(cfg, pcfg, group, backend, scratch)
+
+
+def tier_programs(cfg: SimConfig, pcfg: ParallelConfig, group: Group | None,
+                  backend: str, unroll_steps: int,
+                  device: torch.device | str
+                  ) -> tuple[ShardedRollout, ShardedDiagnostics]:
+    """One tier's programs on this rank: its rollout (the stepper, the
+    pair-kernel scratch and, where `captures`, the graph) and the density
+    diagnostics, which share the rollout's scratch. A run moves to another
+    tier by `ShardedRollout.release`, collect, distribute and a new call
+    (launch.rollout_ranks' `retier`, the runner's `--retier-at` and its
+    fallback)."""
+    roll = make_sharded_rollout(cfg, pcfg, group, backend, unroll_steps,
+                                device)
+    work = roll.stepper.work
+    return roll, make_sharded_diagnostics(
+        cfg, pcfg, group, backend, work.scratch if work else None)
 
 
 def distribute(cfg: SimConfig, pcfg: ParallelConfig, state: SimState,

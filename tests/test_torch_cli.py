@@ -375,14 +375,43 @@ def test_spawn_tier_overflow_exits_rc2(tmp_path, monkeypatch):
 
 
 def test_sharded_refusals_exit_rc2(tmp_path):
+    """The sharded runner's refusals: no dense decomposition, a
+    --retier-geom key that neither package's geometry has, a value that is
+    not an integer. (JAX's TPU-only tier flags run with a note:
+    test_jax_tier_flags_run_with_a_note.)"""
     m = str(tmp_path / "m")
-    for extra in (["--backend", "dense"], ["--retier-maxlanes", "49152"],
-                  ["--retier-geom", "cc_d=512"], ["--retier-geom", "own=96"],
-                  ["--retier-geom", "own=x"]):
+    for extra in (["--backend", "dense"], ["--retier-geom", "bogus=1"],
+                  ["--retier-geom", "own=x"], ["--retier-geom", "cc_d=x"]):
         assert cli.main(ONE_RANK + extra + ["--metrics", m]) == 2, extra
     assert not os.path.exists(m)
     # --device cuda (the default) with no card
     assert cli.main(["--devices", "2", "--n", "256", "--steps", "2"]) == 2
+
+
+TPU_GEOM = "cc_d=512,cc_p=256,nbuf=8,gb=16,maxlanes=31744,chains_d=3," \
+    "chains_p=3,ncopies=4"
+
+
+@pytest.mark.parametrize("extra,notes,own", [
+    (["--retier-maxlanes", "49152"], ["--retier-maxlanes 49152"], 64),
+    (["--retier-geom", "cc_d=512"], ["cc_d=512"], 64),
+    (["--retier-geom", "own=96"], ["own 96"], 64),
+    (["--retier-geom", TPU_GEOM + ",own=128"], TPU_GEOM.split(","), 128),
+], ids=["maxlanes", "cc_d", "own96", "every_tpu_key"])
+def test_jax_tier_flags_run_with_a_note(tmp_path, capfd, extra, notes, own):
+    """The JAX tier flags of docs/SCALING.md carry across under
+    interop.config_from_fields' rule: the TPU kernels' knobs are dropped
+    and an own without a kernel runs the port's default, each with a
+    note; the run re-tiers in the geometry that is left."""
+    m = str(tmp_path / "m")
+    assert cli.main(ONE_RANK + ["--retier-at", "2", *extra,
+                                "--metrics", m]) == 0
+    err = capfd.readouterr().err
+    for note in notes:
+        assert note in err, (note, err)
+    retier, = [r for r in _lines(m) if r["event"] == "retier"]
+    assert retier["step"] == 2 and retier["geom"][1]["own"] == own
+    assert retier["geom"][1]["seg"] == retier["geom"][0]["seg"]
 
 
 def test_a_jax_checkpoint_with_own_96_loads_and_runs(tmp_path, capfd):
@@ -405,3 +434,148 @@ def test_a_jax_checkpoint_with_own_96_loads_and_runs(tmp_path, capfd):
             if r["event"] == "progress"] == [2]
     with pytest.raises(ValueError):
         interop.KernelGeometry(own=96).validate()
+
+
+# ---------------------------------------------------------------------------
+# the two tiers on gloo ranks (--fake-devices 2)
+# ---------------------------------------------------------------------------
+
+TIER_RUN = MESH + ["--chunk", "4", "--metrics-every", "4",
+                   "--fake-devices", "2"]
+
+
+def _tier_capacities(pcfg):
+    return [pcfg.capacity, pcfg.ghost_capacity, pcfg.mig_capacity]
+
+
+def _retier_capacities(record):
+    return [list(x) for x in zip(record["capacity"], record["ghost_capacity"],
+                                 record["mig_capacity"])]
+
+
+def test_fake_devices_retier_and_a_resume_past_it(tmp_path):
+    """--retier-at 4 on two gloo ranks with the JAX tier flags: the retier
+    record between the two tiers' progress records, its capacities those
+    of ParallelConfig.create on the spawn and .compact on the state at
+    step 4; a resume of step 4's checkpoint past --retier-at re-tiers at
+    once and ends in the same bits."""
+    ck4, ck8, ck8b = (str(tmp_path / f) for f in ("4.npz", "8.npz", "8b.npz"))
+    m1, m2, m3 = (str(tmp_path / f) for f in ("m1", "m2", "m3"))
+    assert cli.main(TIER_RUN + ["--steps", "4", "--checkpoint", ck4,
+                                "--metrics", m1]) == 0
+    assert cli.main(TIER_RUN + ["--steps", "8", "--retier-at", "4",
+                                "--retier-maxlanes", "49152", "--retier-geom",
+                                "cc_d=512", "--checkpoint", ck8,
+                                "--metrics", m2]) == 0
+    assert cli.main(["--resume", ck4, "--steps", "4", "--chunk", "4",
+                     "--metrics-every", "4", "--fake-devices", "2",
+                     "--retier-at", "4", "--checkpoint", ck8b,
+                     "--metrics", m3]) == 0
+    cfg, st4 = checkpoint.load(ck4, device="cpu")
+    spawn_tier = sharded.ParallelConfig.create(
+        cfg, 2, state=spawn(cfg, "dam_break", seed=0, device="cpu"))
+    resumed_tier = sharded.ParallelConfig.create(cfg, 2, state=st4)
+    compact = sharded.ParallelConfig.compact(cfg, 2, state=st4,
+                                             prior=spawn_tier)
+    assert compact.capacity < spawn_tier.capacity
+
+    run, resumed = _lines(m2), _lines(m3)
+    assert [r["event"] for r in run] == ["start", "progress", "retier",
+                                         "progress", "done"]
+    assert [r["event"] for r in resumed] == ["start", "retier", "progress",
+                                             "done"]
+    for records, old in ((run, spawn_tier), (resumed, resumed_tier)):
+        retier = records[[r["event"] for r in records].index("retier")]
+        assert retier["step"] == 4
+        assert _retier_capacities(retier) == [_tier_capacities(old),
+                                              _tier_capacities(compact)]
+        assert retier["geom"][0] == retier["geom"][1]
+        prog = [r for r in records if r["event"] == "progress"]
+        assert prog[-1]["step"] == 8
+        for r in prog:
+            assert r["overflows"] == [0, 0, 0, 0] and not r["nan_detected"]
+            assert sum(r["per_shard_active"]) == cfg.n
+            assert "mean_density" in r
+    a, b = (checkpoint.load(p, device="cpu")[1] for p in (ck8, ck8b))
+    assert int(a.step) == int(b.step) == 8
+    assert all(torch.equal(s, t) for s, t in zip(a[:3], b[:3]))
+
+
+OVERFLOW_COLUMN_ENV = "PBF_TEST_OVERFLOW_COLUMN"
+COUNTS_DIR_ENV = "PBF_TEST_COUNTS_DIR"
+
+
+def _overflowing_mesh_rank(group, device, workdir, *job) -> None:
+    """cli._mesh_rank with one overflow of the stats column that
+    OVERFLOW_COLUMN_ENV names added to every step of the compact tier (a
+    tier made by ParallelConfig.compact), and the rollouts it builds and
+    releases counted into COUNTS_DIR_ENV's directory."""
+    column = int(os.environ[OVERFLOW_COLUMN_ENV])
+    real_compact, real_step = (sharded.ParallelConfig.compact,
+                               sharded._shard_step)
+    real_rollout, real_release = (sharded.make_sharded_rollout,
+                                  sharded.ShardedRollout.release)
+    compact_tiers, counts = [], {"rollouts": 0, "releases": 0}
+
+    def compact(*args, **kwargs):
+        compact_tiers.append(real_compact(*args, **kwargs))
+        return compact_tiers[-1]
+
+    def step(cfg, pcfg, *rest):
+        out = real_step(cfg, pcfg, *rest)
+        if any(pcfg is c for c in compact_tiers):
+            stats = out[4].clone()
+            stats[column] += 1
+            out = (*out[:4], stats, out[5])
+        return out
+
+    def rollout(*args, **kwargs):
+        counts["rollouts"] += 1
+        return real_rollout(*args, **kwargs)
+
+    def release(self):
+        counts["releases"] += 1
+        real_release(self)
+
+    sharded.ParallelConfig.compact = staticmethod(compact)
+    sharded._shard_step = step
+    sharded.make_sharded_rollout = rollout
+    sharded.ShardedRollout.release = release
+    cli._mesh_rank(group, device, workdir, *job)
+    with open(os.path.join(os.environ[COUNTS_DIR_ENV],
+                           f"rank{group.rank}.json"), "w") as f:
+        json.dump(counts, f)
+
+
+@pytest.mark.parametrize("column,rc", [(3, 0), (1, 2)],
+                         ids=["ghost_falls_back", "migration_exits_rc2"])
+def test_fake_devices_compact_tier_overflow(tmp_path, monkeypatch, column,
+                                            rc):
+    """Ghost overflow on the compact tier falls back to a spawn tier made
+    from the current state (a tier_fallback record, a warning, one more
+    rollout a rank, clean records after it, rc 0); migration overflow drops
+    particles and exits 2."""
+    monkeypatch.setattr(cli, "_mesh_rank", _overflowing_mesh_rank)
+    monkeypatch.setenv(OVERFLOW_COLUMN_ENV, str(column))
+    monkeypatch.setenv(COUNTS_DIR_ENV, str(tmp_path))
+    m = str(tmp_path / "m")
+    assert cli.main(TIER_RUN + ["--steps", "12", "--retier-at", "4",
+                                "--metrics", m]) == rc
+    records = _lines(m)
+    events = [r["event"] for r in records]
+    flagged = [0, 0, 0, 0]
+    flagged[column - 1] = 2 * 4  # two ranks, four steps
+    assert records[3]["event"] == "progress" and records[3]["step"] == 8
+    assert records[3]["overflows"] == flagged
+    if rc == 2:
+        assert events == ["start", "progress", "retier", "progress"]
+        return
+    assert events == ["start", "progress", "retier", "progress",
+                      "tier_fallback", "progress", "done"]
+    fallback = records[4]
+    assert fallback["step"] == 8 and fallback["overflows"] == flagged
+    assert records[5]["overflows"] == [0, 0, 0, 0]
+    assert sum(records[5]["per_shard_active"]) == 512
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.json") as f:
+            assert json.load(f) == {"rollouts": 3, "releases": 2}

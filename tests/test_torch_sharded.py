@@ -159,7 +159,9 @@ def move_case():
     parities."""
     jcfg, cfg, jst, st = _jax_pair(MOVE_CAP, "dam_break", seed=2)
     b = sharded.initial_bounds(cfg, MOVE_D)
-    cap_lim = MOVE_CAP - MOVE_CAP // 8
+    # the port's rule has no recipient limit; JAX's at the capacity cannot
+    # bind (a move keeps the recipient under the donor's load)
+    cap_lim = MOVE_CAP
     out = {}
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:MOVE_D]), ("z",))
     for ctr in (0, 1):
@@ -179,10 +181,10 @@ def move_case():
                             jnp.asarray(active), jnp.asarray(key)))
         assert (got == got[0]).all()
         out[ctr] = (brow, active, key, got[0])
-    return cfg, cap_lim, out
+    return cfg, out
 
 
-def _port_move(cfg, cap_lim, brow, active, key, mig_capacity):
+def _port_move(cfg, brow, active, key, mig_capacity):
     pcfg = sharded.ParallelConfig(n_devices=MOVE_D, capacity=MOVE_CAP,
                                   mig_capacity=mig_capacity,
                                   ghost_capacity=256)
@@ -191,15 +193,14 @@ def _port_move(cfg, cap_lim, brow, active, key, mig_capacity):
                                          torch.from_numpy(active[r]),
                                          torch.from_numpy(key[r]))
                      for r in range(MOVE_D)])
-    return sharded._move_bounds(cfg, pcfg, tb, g, cap_lim).numpy(), g.numpy()
+    return sharded._move_bounds(cfg, pcfg, tb, g).numpy(), g.numpy()
 
 
 @pytest.mark.parametrize("ctr", [0, 1])
 def test_move_rule_equals_jax(move_case, ctr):
-    cfg, cap_lim, out = move_case
+    cfg, out = move_case
     brow, active, key, want = out[ctr]
-    got, _ = _port_move(cfg, cap_lim, brow, active, key,
-                        mig_capacity=MOVE_CAP)
+    got, _ = _port_move(cfg, brow, active, key, mig_capacity=MOVE_CAP)
     np.testing.assert_array_equal(got, want)
     assert (got[1:] != brow[1:]).any(), "the case must move a boundary"
 
@@ -209,10 +210,9 @@ def test_move_rule_donates_no_strip_beyond_mig_capacity(move_case, ctr):
     """The port's deliberate difference: where JAX donates a strip of more
     than mig_capacity particles (its migration would overflow and drop
     them), the port tries the next finer scale instead."""
-    cfg, cap_lim, out = move_case
+    cfg, out = move_case
     brow, active, key, want = out[ctr]
-    _, g = _port_move(cfg, cap_lim, brow, active, key,
-                      mig_capacity=MOVE_CAP)
+    _, g = _port_move(cfg, brow, active, key, mig_capacity=MOVE_CAP)
     jax_shift = want[2:-1] - brow[2:-1]
     moved = np.nonzero(jax_shift)[0]
     scales = sharded._move_scales(cfg)
@@ -221,7 +221,7 @@ def test_move_rule_donates_no_strip_beyond_mig_capacity(move_case, ctr):
              else int(g[i + 1, 1 + 2 * scales.index(s)])
              for i, s in zip(moved, jax_shift[moved])]
     mig_cap = max(strip) - 1
-    got, _ = _port_move(cfg, cap_lim, brow, active, key, mig_capacity=mig_cap)
+    got, _ = _port_move(cfg, brow, active, key, mig_capacity=mig_cap)
     shift = got[2:-1] - brow[2:-1]
     for i, s, pop in zip(moved, jax_shift[moved], strip):
         if pop <= mig_cap:

@@ -237,3 +237,37 @@ def test_solve_with_every_switch_matches_jax(case):
     want = case["solved"]
     np.testing.assert_allclose(got, want, rtol=0, atol=SOLVE_ATOL)
     assert _maxdiff(fp32, want) > SOLVE_ATOL
+
+
+def test_bf16_split_of_float64_is_the_float32_split():
+    """A float64 tensor of float32 values splits as the float32 one does,
+    so the plain versions' float64 evaluation keeps the form's bf16
+    pieces."""
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(np.concatenate([
+        rng.uniform(-4.64, 4.64, 4096), rng.uniform(-1e-3, 1e-3, 1024),
+        [0.0, -0.0, 1.0, 2.0, 1e-30]]).astype(np.float32))
+    for got, want in zip(cuda_pbf.bf16_split(a.double()),
+                         cuda_pbf.bf16_split(a)):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("form", ["proj", "proj_sum"])
+def test_project_form_in_float64_is_the_form_unrounded(case, form):
+    """The plain version on float64 input is the same form with its sums
+    in float64 (the witness chip_smoke.py holds the proj kernels' rounding
+    to): the float32 plain version lies within PROJ_ATOL of it (the floor
+    of the form's float32 rounding, measured 1.03e-6 here), and it lies 3x
+    that from the FP32 form."""
+    cfg = _cfg(case, **PROJECT_FORMS[form])
+    p4 = _p4(case, case["lam"]["rd2_sum"])
+    f64 = cuda_pbf.project_pass_ref(cfg, p4.double(), case["plan"], N)
+    f32 = cuda_pbf.project_pass_ref(cfg, p4, case["plan"], N)
+    assert f64.dtype == torch.float64
+    assert torch.equal(f64[:N, 3], p4[:N, 3].double())
+    np.testing.assert_allclose(f32[:N, :3].numpy(), f64[:N, :3].numpy(),
+                               rtol=0, atol=PROJ_ATOL)
+    fp32 = cuda_pbf.project_pass(case["cfg"], p4, case["plan"], N)
+    assert _maxdiff(f64[:N, :3].numpy(), fp32[:N, :3].numpy()) \
+        >= 3 * PROJ_ATOL
