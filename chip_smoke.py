@@ -47,7 +47,14 @@ exits non-zero:
                diagnostics at steps 3, 23 and 243; and the cell backend at 80k
                against the window backend, its one-rank sharded rollout (a
                graph) bitwise the eager loop, then on a table that
-               overflows (the runner exits 2);
+               overflows (the runner, whose cell rollout is a graph,
+               exits 2); and the single-device cell and dense rollouts as
+               CUDA graphs ([backends]): the 80k cell rollout on that
+               table bitwise its eager loop over 10 steps from the spawn,
+               its graph and eager steps/s and device ms a step beside the
+               window backend's; the cell backend at 2048 on a table sized
+               from the window state at step 240, 240 steps bitwise and 20
+               under the sync-debug mode; dense at 2048, 40 steps bitwise;
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
                steps must come to rest (mean dense rho within 5 % of rho0,
                max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN),
@@ -106,7 +113,19 @@ the compact tier; from the step-243 state each tier runs 240 graph steps
 compact tier's graph bitwise its eager loop, both tiers in lockstep
 (bitwise while their slab bounds agree), rates in turns; at D = 4 the nine
 forms on rank 1's compact-tier local set and plans against their plain
-versions. The mode ends with its own kernels line.
+versions. Last, after the runner, [soak], tests/test_sharded_soak.py's
+invariants (parallel/soak.py) on the cards at D = 4 after every chunk
+(active counts sum to n, no overflow, no NaN, every rank's bounds row the
+same, every slab at least 2 z-rows + 2 cells wide, the bounds spanning the
+grid; the boundaries moving, max/mean of the loads within 2.0 for the dam
+and 3.0 for the blowup after the first chunk, the final state finite and
+in the box), each rank's stages with their seconds: the 1M dam break of
+[nccl] through a re-tier after 243 steps and 1920 compact-tier steps, and
+the 1M blowup with [nccl]'s table through 1040 spawn-tier steps in chunks
+of 80; each final mean density within 1 % of a one-card graph Rollout's
+at the same step; K1 lambda, K2 and K1 rho on rank 1's local set at each
+last state against their plain versions. The mode ends with its own
+kernels line.
 
 Every path (phases 5, 6 and 7's runs, the sharded rollouts, phase 8's
 rollouts and runs) is driven with the kernel launch counts set to 0 just before it and read just after;
@@ -286,6 +305,13 @@ RANKS_TIMEOUT_S = 600
 # the cell backend against the window backend over 3 steps (ROADMAP
 # "Parity method"); its table sized from the spawn with this slack
 CELL_STEPS, CELL_SLACK = 3, 1.5
+# [backends]: the 80k cell rollout as a graph on that table against the
+# eager loop, then its rates in turns and its profile; a cell step there
+# took 1477 device ms on an NVIDIA H100 80GB HBM3 at 700 W (plain torch,
+# ~38k kernels over 1504 rows x 27 x 256^2 pairs a pass), so each run is
+# short. The dense rollout at N_ORACLE as a graph
+CELL_GRAPH_STEPS, CELL_RATE_STEPS, CELL_PROFILE_STEPS = 10, 2, 1
+DENSE_GRAPH_STEPS = 40
 # [scale]: the JAX package's large single-device rows
 # (benchmarks/bench_matrix.py:96-143), each in a box scaled to keep the
 # reference's number density (wall = 2 (n / 80k)^(1/3)): row -> (scene,
@@ -336,6 +362,21 @@ NCCL_CLI_STEPS, NCCL_CLI_EVERY, NCCL_CLI_RENDER = 300, 20, 100
 NCCL_CLI_RETIER, NCCL_CLI_RESUME, NCCL_CLI_CHUNK = 240, 40, 30
 NCCL_CLI_FORCED_STEPS = 60
 JAX_TIER_FLAGS = ["--retier-maxlanes", "49152", "--retier-geom", "cc_d=512"]
+# [soak] (--ranks): the invariants of tests/test_sharded_soak.py after every
+# chunk, on SOAK_D NCCL ranks at the 1M multi-device row: the dam break
+# (NCCL_ROWS, NCCL_TABLE) through a re-tier after its first chunk, then 8 x
+# NCCL_STEPS compact-tier steps (2163 in all); the blowup (SCALE_ROWS'
+# blowup1m with NCCL_TABLE) on the spawn tier at the one-card blowup1m's
+# horizon and cadence. scene -> (chunks, the chunk that re-tiers, the
+# imbalance limit of test_sharded_soak.py:51-57). Each final mean density
+# is held against a one-card graph rollout's (DENS_MEAN_RTOL); K1 lambda,
+# K2 and K1 rho on rank SOAK_RANK's local set at each leg's last state
+SOAK_D, SOAK_RANK = 4, 1
+SOAK_TIMEOUT_S = 300   # a leg's ranks: ~1 minute expected
+SOAK_LEGS = {
+    "dam_break": ((RANK_MARKS[-1],) + (NCCL_STEPS,) * 8, 1, 2.0),
+    "blowup": ((BLOWUP_EVERY,) * (BLOWUP_STEPS // BLOWUP_EVERY), None, 3.0),
+}
 # where each rank of the runner leaves what it counted, and which overflow
 # it forces on the compact tier
 RANK_COUNTS_ENV = "CHIP_SMOKE_RANK_COUNTS"
@@ -1509,7 +1550,7 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
     err3 = float((got[0][0].x - refs[marks[0]][0]).abs().max())
     pop = _population(got[1][0].x, refs[marks[1]][0])
     dens = []
-    for (_, s, _, _, dg), m in zip(got, marks):
+    for (_, s, _, _, dg, _), m in zip(got, marks):
         w = s[:, 0].double()
         dens.append((m, float((dg[:, 0].double() * w).sum() / w.sum()),
                      float(dg[:, 1].max()), refs[m][1], refs[m][2]))
@@ -1548,7 +1589,7 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
           f"{secs:.1f} s with the ranks' start")
     torch.testing.assert_close(got[0][0].x, refs[marks[0]][0],
                                rtol=SHARD_RTOL, atol=SHARD_ATOL)
-    for _, s, d, _, dg in got:
+    for _, s, d, _, dg, _ in got:
         if (s[:, 1:].sum() or int(s[:, 0].sum()) != n or d[:, 1:].sum()
                 or dg[:, 4].sum()):
             raise AssertionError(f"{head} D={D} stats are wrong: "
@@ -1566,6 +1607,22 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
     return launches, got[len(RANK_CHUNKS) - 1][0]
 
 
+def _cell_table(cfg, x: torch.Tensor) -> tuple[dict, int, int]:
+    """The cell table of phase_cell for positions x: (max_occupied_cells
+    CELL_SLACK x the occupied cells rounded up to 8, and cell_capacity =
+    block CELL_SLACK x the fullest cell's count rounded up to a power of
+    two from 16; the occupied cells; the fullest cell's count)."""
+    from pdb_sph_tpu_torch.ops import hashgrid
+
+    _, counts = torch.unique(hashgrid.cell_ids(cfg, x), return_counts=True)
+    cap = 16
+    while cap < CELL_SLACK * int(counts.max()):
+        cap *= 2
+    occ = -(-int(CELL_SLACK * counts.numel()) // 8) * 8
+    return (dict(max_occupied_cells=occ, cell_capacity=cap, block=cap),
+            counts.numel(), int(counts.max()))
+
+
 def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     """The cell backend at the flagship size: CELL_STEPS steps against the
     window backend, with a table sized so nothing overflows; the one-rank
@@ -1577,20 +1634,14 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch import cli
     from pdb_sph_tpu_torch.io import checkpoint
-    from pdb_sph_tpu_torch.ops import hashgrid
     from pdb_sph_tpu_torch.parallel import sharded
     from pdb_sph_tpu_torch.utils.timing import fence
 
     cfg0 = pbf.default_config(n=n)
     st = pbf.spawn(cfg0, "dam_break", seed=0, device=device)
-    _, counts = torch.unique(hashgrid.cell_ids(cfg0, st.x),
-                             return_counts=True)
-    occ = -(-int(CELL_SLACK * counts.numel()) // 8) * 8
-    cap = 16
-    while cap < CELL_SLACK * int(counts.max()):
-        cap *= 2
-    cfg = dataclasses.replace(cfg0, max_occupied_cells=occ,
-                              cell_capacity=cap, block=cap)
+    table, cells, fullest = _cell_table(cfg0, st.x)
+    cfg = dataclasses.replace(cfg0, **table)
+    occ, cap = table["max_occupied_cells"], table["cell_capacity"]
     cell = pbf.make_step(cfg, "cell", device=device)
     win = pbf.make_step(cfg, "window", device=device)
     # each cell step starts from the window backend's state: a particle
@@ -1612,8 +1663,8 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
         err = max(err, float((xa - xb).abs().max()))
         torch.testing.assert_close(xa, xb, rtol=ORACLE_RTOL,
                                    atol=ORACLE_ATOL)
-    print(f"[cell] n={n}: {counts.numel()} occupied cells, at most "
-          f"{int(counts.max())} a cell; table max_occupied_cells {occ}, "
+    print(f"[cell] n={n}: {cells} occupied cells, at most "
+          f"{fullest} a cell; table max_occupied_cells {occ}, "
           f"cell_capacity {cap}; {CELL_STEPS} steps, each from the window "
           f"backend's state, in {secs:.3f} s, stats [0, 0, 0]; max|dx| vs "
           f"window {err:.3e} (rtol {ORACLE_RTOL:g}, atol {ORACLE_ATOL:g})")
@@ -1644,17 +1695,125 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     metrics = os.path.join(out_dir, "cell_small.jsonl")
     if os.path.exists(metrics):
         os.remove(metrics)
-    rc = cli.main(["--resume", ck, "--steps", "1", "--chunk", "1",
-                   "--backend", "cell", "--device", "cuda",
-                   "--metrics-every", "0", "--metrics", metrics])
+    with _counting(torch.cuda.CUDAGraph, "capture_begin") as captures:
+        rc = cli.main(["--resume", ck, "--steps", "1", "--chunk", "1",
+                       "--backend", "cell", "--device", "cuda",
+                       "--metrics-every", "0", "--metrics", metrics])
     with open(metrics) as f:
         last = json.loads(f.readlines()[-1])
     print(f"[cell] max_occupied_cells {occ // 3}: table_overflow "
-          f"{int(stats[0])} in one step; the runner exits {rc}, its last "
-          f"record {last}")
+          f"{int(stats[0])} in one step; the runner (--backend cell, "
+          f"{captures[0]} graph capture) exits {rc}, its last record {last}")
     if not int(stats[0]) > 0 or rc != 2 or not last.get("n_overflow"):
         raise AssertionError("the small table did not overflow, or the "
                              "runner did not exit 2 on it")
+    if captures != [1]:
+        raise AssertionError(f"the runner's cell rollout captured "
+                             f"{captures[0]} graphs, not 1")
+
+
+def phase_backends(device, card: str, out_dir: str, window: dict,
+                   n: int = N_MAIN) -> None:
+    """The single-device rollouts of the other backends as CUDA graphs, as
+    the JAX rollout scans every backend, each from its spawn against
+    Stepper.step calls, bitwise (x, v, ids, step, stats), stats [0, 0, 0]:
+    the cell backend at n on phase_cell's table, CELL_GRAPH_STEPS steps
+    (the falling dam compresses, and its fullest cell soon outgrows that
+    table's capacity), then graph and eager steps/s in turns (eager,
+    graph, graph, eager) over CELL_RATE_STEPS and CELL_PROFILE_STEPS of
+    each profiled,
+    beside the window backend's (`window`, phase_graph's); the cell backend
+    at N_ORACLE on the table of phase_cell's rule from the window
+    backend's state ROLLOUT_STEPS steps on, ROLLOUT_STEPS steps from it,
+    then SYNC_STEPS graph steps under set_sync_debug_mode("error"); the
+    dense backend at N_ORACLE, DENSE_GRAPH_STEPS steps."""
+    import dataclasses
+
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+
+    def graph_vs_eager(cfg, backend: str, state, steps: int):
+        rollout = pbf.make_rollout(cfg, backend, steps, with_stats=True,
+                                   device=device)
+        fence(device)
+        t0 = time.perf_counter()
+        g, g_stats = rollout(state)
+        fence(device)
+        first_s = time.perf_counter() - t0
+        e, e_stats = _eager_steps(rollout.stepper, state, steps)
+        equal = {f: torch.equal(a, b) for f, a, b in zip(g._fields, g, e)}
+        equal["stats"] = torch.equal(g_stats, e_stats)
+        head = f"[backends] {backend} n={cfg.n}"
+        print(f"{head}: the Rollout is a graph {rollout.graphed}; {steps} "
+              f"graph steps from step {int(state.step)} vs {steps} eager "
+              f"Stepper.step steps: bitwise equal {equal}, stats "
+              f"{g_stats.tolist()}; first call (warm-up step, capture, "
+              f"{steps} replays) {first_s:.3f} s")
+        if not rollout.graphed or not all(equal.values()) \
+                or g_stats.tolist() != [0, 0, 0]:
+            raise AssertionError(f"{head}: not a graph, or it left the eager "
+                                 f"loop's bits, or counted overflow")
+        return rollout, g
+
+    cfg0 = pbf.default_config(n=n)
+    st = pbf.spawn(cfg0, "dam_break", seed=0, device=device)
+    table, _, _ = _cell_table(cfg0, st.x)
+    cfg = dataclasses.replace(cfg0, **table)
+    rollout, g = graph_vs_eager(cfg, "cell", st, CELL_GRAPH_STEPS)
+    stepper = rollout.stepper
+    runs = {"eager": lambda k: _eager_steps(stepper, g, k),
+            "graph": lambda k: rollout(g, k)}
+    rates: dict[str, list[float]] = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        fence(device)
+        t0 = time.perf_counter()
+        runs[mode](CELL_RATE_STEPS)
+        fence(device)
+        rates[mode].append(CELL_RATE_STEPS / (time.perf_counter() - t0))
+    prof = {mode: profile_kernels(
+                lambda: run(CELL_PROFILE_STEPS),
+                os.path.join(out_dir, f"backends_cell_{mode}.json"))
+            for mode, run in runs.items()}
+    win = window["rates"]
+    print(f"[backends] cell n={n} on phase_cell's table "
+          f"{table['max_occupied_cells']} x {table['cell_capacity']}: "
+          f"steps/s eager {rates['eager'][0]:.3f}, graph "
+          f"{rates['graph'][0]:.3f}, graph {rates['graph'][1]:.3f}, eager "
+          f"{rates['eager'][1]:.3f} (host clock, fenced, {CELL_RATE_STEPS} "
+          f"steps each) on {card}; "
+          + "; ".join(_profile_line(f"{m} {CELL_PROFILE_STEPS} steps", r,
+                                    CELL_PROFILE_STEPS)
+                      for m, r in prof.items())
+          + f"; beside the window backend's ([graph], default geometry): "
+          f"eager {statistics.median(win['eager']):.2f}, graph "
+          f"{statistics.median(win['graph']):.2f} steps/s, "
+          + _profile_line(f"graph {PROFILE_STEPS} steps",
+                          window["profile"]["graph"], PROFILE_STEPS))
+    del rollout, stepper, runs, g
+
+    cfg0 = pbf.default_config(n=N_ORACLE)
+    st = pbf.make_rollout(cfg0, "window", ROLLOUT_STEPS, device=device)(
+        pbf.spawn(cfg0, "dam_break", seed=0, device=device))
+    table, cells, fullest = _cell_table(cfg0, st.x)
+    print(f"[backends] cell n={N_ORACLE}: the window backend's state at step "
+          f"{int(st.step)} has {cells} occupied cells, at most {fullest} a "
+          f"cell: table {table['max_occupied_cells']} x "
+          f"{table['cell_capacity']}")
+    rollout, g = graph_vs_eager(dataclasses.replace(cfg0, **table), "cell",
+                                st, ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rollout(g, SYNC_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[backends] cell n={N_ORACLE}: {SYNC_STEPS} graph steps under "
+          f"set_sync_debug_mode('error') without a sync")
+
+    graph_vs_eager(cfg0, "dense", pbf.spawn(cfg0, "dam_break", seed=0,
+                                            device=device),
+                   DENSE_GRAPH_STEPS)
 
 
 def _in_box(x: torch.Tensor, wall: float) -> bool:
@@ -2610,15 +2769,10 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
     return total
 
 
-def phase_tier_kernels(device, cfg, path: str, D: int, rank: int,
-                       witnesses: dict) -> dict:
-    """The nine forms on the local set and restricted plans that rank
-    `rank` of D built at the compact tier's first step (saved at `path` by
-    _record_local_plans): against their plain versions at the restricted
-    checks' tolerances, the project forms with mxu_proj with the float64
-    witness (_proj_witness, into `witnesses`), two launches bitwise equal,
-    the counters back at 0, each beside its bound. Returns {counter:
-    (max|err|, ms, plain ms, bound ms, bound by)}."""
+def _load_local_plans(device, path: str, head: str) -> tuple:
+    """(rows, row count, density plan, project plan) that
+    _record_local_plans saved at `path`, on `device`; raises if a window
+    reaches a padding row."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
 
     z = torch.load(path)
@@ -2629,15 +2783,29 @@ def phase_tier_kernels(device, cfg, path: str, D: int, rank: int,
         seg_prefix=z[f"{k}_seg_prefix"].to(device),
         seg_len=z[f"{k}_seg_len"].to(device)) for k in ("d", "p"))
     lens = (plan_d.ranges[..., 1] - plan_d.ranges[..., 0]).sum(dim=1)
-    head = f"[tiers] dam1m D={D}"
-    print(f"{head} compact tier, rank {rank}'s local set at step "
-          f"{RANK_MARKS[-1]}: {n} rows ({z['valid']} valid, the rest "
-          f"padding), {lens.numel()} chunks, {int((lens > 0).sum())} with "
-          f"candidates for the density forms; no window reaches the "
-          f"padding: {int(plan_d.ranges[..., 1].max()) <= z['valid']}")
+    print(f"{head}: {n} rows ({z['valid']} valid, the rest padding), "
+          f"{lens.numel()} chunks, {int((lens > 0).sum())} with candidates "
+          f"for the density forms; no window reaches the padding: "
+          f"{int(plan_d.ranges[..., 1].max()) <= z['valid']}")
     if int(plan_d.ranges[..., 1].max()) > z["valid"] \
             or int(plan_p.ranges[..., 1].max()) > z["valid"]:
         raise AssertionError(f"{head}: a window reaches a padding row")
+    return p4, n, plan_d, plan_p
+
+
+def phase_tier_kernels(device, cfg, path: str, D: int, rank: int,
+                       witnesses: dict) -> dict:
+    """The nine forms on the local set and restricted plans that rank
+    `rank` of D built at the compact tier's first step (saved at `path` by
+    _record_local_plans): against their plain versions at the restricted
+    checks' tolerances, the project forms with mxu_proj with the float64
+    witness (_proj_witness, into `witnesses`), two launches bitwise equal,
+    the counters back at 0, each beside its bound. Returns {counter:
+    (max|err|, ms, plain ms, bound ms, bound by)}."""
+    head = f"[tiers] dam1m D={D}"
+    p4, n, plan_d, plan_p = _load_local_plans(
+        device, path, f"{head} compact tier, rank {rank}'s local set at "
+                      f"step {RANK_MARKS[-1]}")
     tag = f" compact tier rank {rank}:"
     fp, d_k = _fp32_kernels(cfg, p4, plan_d, n, RANK_MARKS[-1], 1,
                             plan_p=plan_p, tag=tag, head=head)
@@ -2864,6 +3032,149 @@ def phase_nccl_cli(card: str, D: int, out_dir: str,
     return total
 
 
+def _soak_rank(group, device, workdir: str, plans: str, plans_rank: int,
+                *args) -> None:
+    """A rank of launch.rollout_ranks (launch._rollout_rank with `args`)
+    that then takes one eager step from the state its last chunk left, rank
+    `plans_rank` saving at `plans` the local set and plans its solve runs
+    on (_record_local_plans), and releases the rollout. That step's
+    launches come after the rank has written its counts. Each stage leaves
+    a note (launch.note) with its seconds."""
+    from pdb_sph_tpu_torch.parallel import launch
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    roll, sst = launch._rollout_rank(group, device, workdir, *args)
+    undo = _record_local_plans(plans) if group.rank == plans_rank \
+        else (lambda: None)
+    try:
+        roll.stepper.step(sst)
+        fence(device)
+        launch.note(workdir, group.rank, "the eager step from the last "
+                                         "state")
+    finally:
+        undo()
+        roll.release()
+    del roll, sst
+    launch.note(workdir, group.rank, "released the rollout")
+
+
+def phase_soak(device, card: str, out_dir: str, failures: list
+               ) -> tuple[dict, dict]:
+    """[soak]: each leg of SOAK_LEGS on SOAK_D NCCL ranks, one card each,
+    through the graph (launch.rollout_ranks' rank, _soak_rank), within
+    SOAK_TIMEOUT_S; parallel.soak.check's invariants after every chunk, one
+    line a chunk; each rank's stages with their seconds (launch.note); the
+    final mean density against a one-card graph Rollout's from the same
+    spawn at the same step (within DENS_MEAN_RTOL); each rank's launches,
+    K1 lambda and K2 3 a step and its warm-up steps, K1 rho once a chunk;
+    K1 lambda, K2 and K1 rho on rank SOAK_RANK's local set at the last
+    state against their plain versions. Failures go to `failures`.
+    Returns (the legs' launches summed over the ranks, {leg: the kernels'
+    figures})."""
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.parallel import launch, soak
+    from pdb_sph_tpu_torch.utils.timing import fence
+
+    D = SOAK_D
+    total = dict.fromkeys(KERNELS, 0)
+    kern = {}
+    for scene, (chunks, retier, limit) in SOAK_LEGS.items():
+        if scene == "dam_break":
+            n, wall = NCCL_ROWS["dam1m"]
+            cfg = _nccl_cfg(n, wall)
+        else:
+            _, n, wall = SCALE_ROWS["blowup1m"]
+            cfg = pbf.blowup_config(n=n, wall=wall, **NCCL_TABLE)
+        head = f"[soak] {scene} D={D}"
+        st = pbf.spawn(cfg, scene, seed=0, device="cpu")
+        plans = os.path.join(out_dir, f"soak_{scene}_plans.pt")
+        arrays = tuple(t.numpy() for t in st[:3])
+        with tempfile.TemporaryDirectory(prefix="soak_") as workdir:
+            t0 = time.perf_counter()
+            try:
+                launch.run(_soak_rank, D, [f"cuda:{r}" for r in range(D)],
+                           comm="nccl", timeout_s=SOAK_TIMEOUT_S,
+                           workdir=workdir,
+                           args=(plans, SOAK_RANK, cfg, arrays,
+                                 list(chunks), "window", None, retier))
+            except launch.RankFailure as e:
+                print(f"{head} FAILED: {e}")
+                failures.append(f"{head}: {e}")
+                continue
+            secs = time.perf_counter() - t0
+            got, ranks = launch.read_chunks(workdir, D, len(chunks))
+            for r in range(D):
+                with open(os.path.join(workdir, f"notes{r}.txt")) as f:
+                    print(f"{head} rank {r} stages (seconds from its start): "
+                          + "; ".join(f.read().splitlines()))
+        rows, bad = soak.check(cfg, D, st, got, chunks, retier, limit)
+        for r, (ch, k) in zip(rows, zip(got, chunks)):
+            print(f"{head} step {r['step']} {r['tier']} tier: "
+                  f"balance_min_over_mean {r['balance']:.6f}, max/mean "
+                  f"{r['imbalance']:.6f}, max speed {r['max_speed']:.4f}, "
+                  f"mean rho {_weighted_density(ch.stats, ch.density):.2f}"
+                  f", boundary moves {r['moves']}, narrowest slab "
+                  f"{r['min_slab']} keys; {r['secs']:.4f} s "
+                  f"({k / r['secs']:.2f} steps/s, rank 0's clock, fenced)")
+        steps = sum(chunks)
+        tiers = 1 + (retier is not None)
+        for r, counts in enumerate(ranks):
+            try:
+                _check_launches(f"{head} rank {r}", counts, SOLVE_KERNELS,
+                                3 * (steps + WARMUP_STEPS * tiers),
+                                rho=len(chunks))
+            except AssertionError as e:
+                bad.append(str(e))
+            for k, v in counts.items():
+                total[k] += v
+
+        # the one-card graph rollout from the same spawn
+        roll = pbf.make_rollout(cfg, "window", NCCL_STEPS, with_stats=True,
+                                device=device)
+        ref = type(st)(*(t.to(device) for t in st))
+        sums = torch.zeros((3,), dtype=torch.int32, device=device)
+        fence(device)
+        t0 = time.perf_counter()
+        for done in range(0, steps, NCCL_STEPS):
+            ref, s_k = roll(ref, min(NCCL_STEPS, steps - done))
+            sums += s_k
+        fence(device)
+        ref_s = time.perf_counter() - t0
+        d = pbf.diagnostics_fn(cfg, ref, roll.stepper.scratch)
+        ref_rho = float(d.mean_density)
+        mine = _weighted_density(got[-1].stats, got[-1].density)
+        share = abs(mine - ref_rho) / ref_rho
+        if not share <= DENS_MEAN_RTOL or sums.tolist() != [0, 0, 0] \
+                or int(ref.step) != steps:
+            bad.append(f"mean rho {mine:.2f} vs one card's {ref_rho:.2f}, "
+                       f"one card's stats {sums.tolist()}")
+        print(f"{head} on {card}: n={n} wall={wall}, chunks {list(chunks)}"
+              f", re-tier before chunk {retier}; {steps} steps, "
+              f"{secs:.1f} s with the ranks' start; final mean rho "
+              f"{mine:.2f} vs one card's graph Rollout {ref_rho:.2f} at step "
+              f"{int(ref.step)} "
+              f"({100 * share:.4f} %, within {100 * DENS_MEAN_RTOL:g} %; "
+              f"one card {steps / ref_s:.2f} steps/s, stats "
+              f"{sums.tolist()}, max speed {float(d.max_speed):.4f}); "
+              f"launches a rank {[_nonzero(c) for c in ranks]}; checks "
+              + ("pass" if not bad else f"FAILED: {bad}"))
+        del roll, ref
+        torch.cuda.empty_cache()
+        try:
+            p4, n_loc, plan_d, plan_p = _load_local_plans(
+                device, plans, f"{head} rank {SOAK_RANK}'s local set at "
+                               f"step {steps}")
+            kern[scene], _ = _fp32_kernels(
+                cfg, p4, plan_d, n_loc, steps, 1, plan_p=plan_p,
+                tag=f" rank {SOAK_RANK}, last state:", head=head)
+            del p4, plan_d, plan_p
+        except AssertionError as e:
+            bad.append(f"the kernels: {e}")
+        if bad:
+            failures.append(f"{head}: {bad}")
+    return total, kern
+
+
 def main_ranks(n_ranks: int) -> int:
     """The [nccl] mode: phases 1-2, then the sharded rollout on NCCL ranks
     at D = 2 and D = `n_ranks` (the D = 4 parts at the largest), each with
@@ -2884,7 +3195,10 @@ def main_ranks(n_ranks: int) -> int:
     card = phase_device()
     phase_build()
     import pdb_sph_tpu_torch as pbf
-    from pdb_sph_tpu_torch.ops import hashgrid
+
+    def mark(what: str) -> None:
+        print(f"[time] {what}: {time.perf_counter() - t_start:.1f} s from "
+              "the start of the script", flush=True)
 
     n, wall = NCCL_ROWS["dam1m"]
     cfg = _nccl_cfg(n, wall)
@@ -2898,17 +3212,12 @@ def main_ranks(n_ranks: int) -> int:
     torch.cuda.empty_cache()
     phase_nccl_single(device, card, out_dir)
     torch.cuda.empty_cache()
+    mark("the one-card references, restricted plans and D = 1")
 
     # the cell table of phase_cell, sized from the 80k spawn
     cfg0 = pbf.default_config(n=N_MAIN)
-    _, counts = torch.unique(hashgrid.cell_ids(cfg0, pbf.spawn(
-        cfg0, "dam_break", seed=0, device=device).x), return_counts=True)
-    cap = 16
-    while cap < CELL_SLACK * int(counts.max()):
-        cap *= 2
-    table = dict(max_occupied_cells=-(-int(CELL_SLACK * counts.numel())
-                                      // 8) * 8,
-                 cell_capacity=cap, block=cap)
+    table, _, _ = _cell_table(cfg0, pbf.spawn(cfg0, "dam_break", seed=0,
+                                              device=device).x)
     n2, wall2 = NCCL_ROWS["dam2m"]
     plans = os.path.join(out_dir, "tiers_plans.pt")
     # every path's launches, summed over its ranks, and of them the compact
@@ -2931,6 +3240,7 @@ def main_ranks(n_ranks: int) -> int:
                                   head="[nccl] dam1m",
                                   compact_steps=NCCL_STEPS)
         add(launches, got)
+        mark(f"D = {D} rollout_ranks")
         state = os.path.join(out_dir, f"tiers_state_d{D}.pt")
         torch.save(tuple(t.cpu() for t in st[:3]), state)
         extra = {"tiers": {"n": n, "wall": wall, "state": state,
@@ -2952,6 +3262,7 @@ def main_ranks(n_ranks: int) -> int:
         got = phase_tiers(card, D, ranks, n, failures)
         add(launches, got)
         add(compact, got)
+        mark(f"D = {D} [nccl] ranks and [tiers]")
         if D == n_ranks:
             _check_switches(card, ranks)
             _check_large(card, ranks, n2, wall2)
@@ -2964,16 +3275,25 @@ def main_ranks(n_ranks: int) -> int:
                                                TIER_RANK, witnesses)
             except AssertionError as e:
                 failures.append(f"[tiers] the nine forms: {e}")
+            mark("[tiers] the nine forms")
     runner = phase_nccl_cli(card, n_ranks, os.path.join(out_dir, "cli"),
                             failures)
     add(launches, runner)
     print(f"[nccl] the runner's launches summed over ranks and runs: "
           f"{_nonzero(runner)}")
+    mark("the runner")
+    # last, so that a soak that stalls keeps nothing else from running;
+    # card 0's cache goes first, for rank 0
+    torch.cuda.empty_cache()
+    soak, soak_kern = phase_soak(device, card, out_dir, failures)
+    add(launches, soak)
+    mark("[soak]")
     if failures:
         raise AssertionError(f"{len(failures)} checks failed: {failures}")
     origin = ("rollout_ranks with its compact chunk, the graph runs of "
-              "[nccl], [tiers]' compact tier, the switch geometries, the "
-              "runner's four runs; summed over the ranks")
+              "[nccl], [tiers]' compact tier, the switch geometries, "
+              "[soak]'s two legs, the runner's four runs; summed over the "
+              "ranks")
     report = [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
@@ -2985,6 +3305,11 @@ def main_ranks(n_ranks: int) -> int:
                         f"of D = {n_ranks}, dam1m, step {RANK_MARKS[-1]}",
          "restricted_spawn_ms": restricted[k][0],
          "restricted_spawn_bound_ms": restricted[k][1],
+         "launches_soak": soak[k],
+         "soak_last_state": {
+             leg: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"),
+                           figs[k])) for leg, figs in soak_kern.items()
+             if k in figs},
          **({"float64_witness": witnesses[k]} if k in witnesses else {})}
         for k in KERNELS]
     if any(r["launches"] <= 0 for r in report):
@@ -3042,11 +3367,12 @@ def main(argv=None) -> int:
         short.update({k: v for k, v in got.items() if k in TC_FORMS and v})
     graph_dir = os.path.join(build_dir, "chip_smoke_graph")
     os.makedirs(graph_dir, exist_ok=True)
-    phase_graph(device, card, graph_dir)
+    window = phase_graph(device, card, graph_dir)
     phase_graph(device, card, graph_dir, geom=tc_geom)
     fast = phase_fastpath(device, card)
     ranks, _ = phase_two_ranks(device, card)
     phase_cell(device, os.path.join(build_dir, "chip_smoke_cell"))
+    phase_backends(device, card, graph_dir, window)
     phase_settle(device)
     tc_settle = phase_settle(device, geom=tc_geom)
     phase_settle(device, geom=KernelGeometry(seg=WITNESS_SEG))

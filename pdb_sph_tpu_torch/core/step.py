@@ -21,19 +21,18 @@ runner's metrics.
 A `Stepper` holds the config, the device (the card unless the caller asks
 for the CPU), and what the solve reuses from step to step: the two
 ping-pong buffers, the pair kernels' scratch, and the step's constant
-tensors (`make_constants`), all made when it is built. A window step then
-reads nothing back from the card and copies nothing from the host: every
-shape follows from the config, and every choice that depends on the data
-is made on the device. `chip_smoke.py` holds it to that on the card by
-running steps under `torch.cuda.set_sync_debug_mode("error")`.
+tensors (`make_constants`), all made when it is built. A step of any
+backend then reads nothing back from the card and copies nothing from the
+host: every shape follows from the config, and every choice that depends
+on the data is made on the device. `chip_smoke.py` holds it to that on the
+card by running steps under `torch.cuda.set_sync_debug_mode("error")`.
 
-So a `Rollout` on a card runs the window backend as a CUDA graph, the
-counterpart of the JAX rollout's jitted scan: its first call captures one
-step (`CapturedStep`, whose body is `step_into`), and every call replays
-it once a step. On the CPU, and on the `cell` and `dense` backends, a
-Rollout is a Python loop over `Stepper.step`. Either way it sums the
-per-step stats vector [table_overflow, plan_overflow, nonfinite] on the
-device.
+So a `Rollout` on a card runs every backend as a CUDA graph, the
+counterpart of the JAX rollout's jitted scan on every backend: its first
+call captures one step (`CapturedStep`, whose body is `step_into`), and
+every call replays it once a step. On the CPU a Rollout is a Python loop
+over `Stepper.step`. Either way it sums the per-step stats vector
+[table_overflow, plan_overflow, nonfinite] on the device.
 """
 
 from __future__ import annotations
@@ -285,9 +284,10 @@ class Rollout:
     summed over the steps). The caller's state is never written, and what
     comes back aliases none of the rollout's tensors.
 
-    On a card, the window backend runs as a CUDA graph (`CapturedStep`,
-    captured at the first call); on the CPU, and on the `cell` and `dense`
-    backends, the steps run as a Python loop over `Stepper.step`."""
+    On a card, every backend runs as a CUDA graph (`CapturedStep`,
+    captured at the first call; the cell step's tables live in the graph's
+    memory pool); on the CPU the steps run as a Python loop over
+    `Stepper.step`."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  unroll_steps: int = 1, with_stats: bool = False,
@@ -297,8 +297,7 @@ class Rollout:
         self.stepper = Stepper(cfg, backend, device)
         self.unroll_steps = unroll_steps
         self.with_stats = with_stats
-        self.graphed = (self.stepper.device.type == "cuda"
-                        and self.stepper.backend == "window")
+        self.graphed = self.stepper.device.type == "cuda"
         self.captured: CapturedStep | None = None
 
     def __call__(self, state: SimState, steps: int | None = None):

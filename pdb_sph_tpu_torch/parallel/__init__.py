@@ -1,6 +1,6 @@
 """Multi-device decomposition of the port: `sharded` (the step, rollout and
 diagnostics of one rank), `comm` (the process group), `launch` (one process
-a rank)."""
+a rank), `soak` (the invariants of a long run)."""
 
 from .comm import Group
 from .sharded import (

@@ -7,7 +7,8 @@ runs the same program on its own slab (there is no SPMD compiler: one
 process a rank, the collectives of `comm.Group` in place of the mesh's):
 
     boundary update   all_gather of per-rank loads, one move per boundary
-    predict, then     migration to the adjacent ranks (two shifts)
+    predict, then     migration (two shifts a hop, D - 1 hops: what is
+                      bound farther goes on through the ranks between)
     local sort        of own particles and their ghosts, frozen for the step
     solver_iters x    ghost exchange (two shifts), density, project
     finalize locally
@@ -26,9 +27,10 @@ and, on the window backend, takes the fast path `_step_single`, which is
 `core.step.step_fn` itself plus the active-slot masks; on a card its
 ShardedRollout runs its step, on either backend, as a CUDA graph, as
 `core.step.Rollout` does. So does a ShardedRollout of several NCCL ranks,
-one card each, on either backend: the step's nine collectives (one
-all_gather of the loads, two shifts of the migration, two of the ghosts
-per solver iteration) are captured with it and meet at every replay,
+one card each, on either backend: the step's collectives (one
+all_gather of the loads, two shifts a migration hop, D - 1 hops, two of
+the ghosts per solver iteration: 2 D + 5, nine at D = 2, thirteen at
+D = 4) are captured with it and meet at every replay,
 since every rank replays the same number of steps. gloo ranks stay
 eager: gloo stages every collective through host memory, which waits for
 the card.
@@ -46,11 +48,14 @@ only the padding after it differs, which no window reaches, so their steps
 agree bit for bit as long as the move rule makes the same moves (it reads
 one capacity: no strip over the tier's mig_capacity is donated).
 
-Deliberate differences from the JAX module, both in `_move_bounds`: the
-move rule donates no strip whose population exceeds `mig_capacity`, so a
-balance move cannot overflow the migration buffer (an ADVICE fault); and
-it has no recipient limit, where JAX keeps the recipient under capacity -
-capacity / 8, which stops the boundaries of the compact tier.
+Deliberate differences from the JAX module: the move rule
+(`_move_bounds`) donates no strip whose population exceeds `mig_capacity`,
+so a balance move cannot overflow the migration buffer (an ADVICE fault),
+and it has no recipient limit, where JAX keeps the recipient under
+capacity - capacity / 8, which stops the boundaries of the compact tier;
+and the migration (`_migrate`) takes a particle bound several ranks
+away all the way within the step, where JAX takes it one rank, counts an
+overflow and leaves it off its slab for the step.
 """
 
 from __future__ import annotations
@@ -552,46 +557,64 @@ def _ghost_exchange(pcfg: ParallelConfig, group: Group, left, right):
 
 def _migrate(cfg: SimConfig, pcfg: ParallelConfig, group: Group, b, p, last,
              ids, active):
-    """Send each particle whose predicted key left the slab to the adjacent
-    rank and pack the stayers and arrivals into the capacity
-    (sharded.py:772-827). Returns (p, last, ids, active, mig_overflow,
-    merge_overflow); a particle bound two or more ranks away is counted in
-    mig_overflow and goes one hop."""
-    D, me = pcfg.n_devices, group.rank
-    key = _zxkey(cfg, p)
-    dest = (key[:, None] >= b[None, 1:D]).sum(dim=1)
-    dest_c = dest.clamp(me - 1, me + 1)
-    mig_over = (active & (dest != dest_c)).sum().to(torch.int32)
+    """Send each particle whose predicted key left the slab to its owner
+    and pack the stayers and arrivals into the capacity
+    (sharded.py:772-827). A hop is one exchange with the adjacent ranks;
+    after it the arrivals bound farther go on, D - 1 hops in all, so every
+    particle reaches its owner within the step. Returns (p, last, ids,
+    active, mig_overflow, merge_overflow); mig_overflow counts the
+    particles a full migration buffer left behind.
 
-    def send(mask):
+    JAX sends one hop and counts every particle bound farther, which then
+    spends the step off its slab. A step's travel is the solve's
+    correction at the step before plus this step's motion: in a blowup at
+    D = 8 (the soak's config) one particle in 250 steps crossed a slab of
+    the minimum width that way, and the 1M blowup's first steps, at speeds
+    near 100, cross two slabs at D = 4."""
+    D, me = pcfg.n_devices, group.rank
+
+    def dest_of(q):
+        return (_zxkey(cfg, q)[:, None] >= b[None, 1:D]).sum(dim=1)
+
+    dest, mig_over = dest_of(p), 0
+
+    def send(rows, mask):
+        q, lst, rid = rows
         idx, ok, over = _pack_rows(mask, pcfg.mig_capacity)
-        ids_f = torch.where(ok, ids[idx], -1).view(torch.float32)
-        buf = torch.cat([torch.where(ok[:, None], p[idx], SENTINEL),
-                         torch.where(ok[:, None], last[idx], SENTINEL),
+        ids_f = torch.where(ok, rid[idx], -1).view(torch.float32)
+        buf = torch.cat([torch.where(ok[:, None], q[idx], SENTINEL),
+                         torch.where(ok[:, None], lst[idx], SENTINEL),
                          ok[:, None].float(), ids_f[:, None]], dim=1)
         return buf, over
-
-    buf_l, over_l = send(active & (dest_c < me))
-    buf_r, over_r = send(active & (dest_c > me))
-    from_right = group.shift(buf_l, -1)   # their left-goers arrive here
-    from_left = group.shift(buf_r, +1)
-    stay = active & (dest_c == me)
 
     def unpack(buf):
         ok = buf[:, 6] > 0.5
         bids = buf[:, 7].contiguous().view(torch.int32)
         return buf[:, 0:3], buf[:, 3:6], torch.where(ok, bids, -1), ok
 
-    parts = [(torch.where(stay[:, None], p, SENTINEL),
-              torch.where(stay[:, None], last, SENTINEL),
-              torch.where(stay, ids, -1), stay),
-             unpack(from_left), unpack(from_right)]
+    rows, ok, parts = (p, last, ids), active, []
+    for hop in range(D - 1):
+        if hop:   # the arrivals, some bound farther
+            dest = dest_of(rows[0])
+        left, right = ok & (dest < me), ok & (dest > me)
+        stay = ok & ~left & ~right
+        parts.append((torch.where(stay[:, None], rows[0], SENTINEL),
+                      torch.where(stay[:, None], rows[1], SENTINEL),
+                      torch.where(stay, rows[2], -1), stay))
+        buf_l, over_l = send(rows, left)
+        buf_r, over_r = send(rows, right)
+        from_right = group.shift(buf_l, -1)   # their left-goers arrive here
+        from_left = group.shift(buf_r, +1)
+        mig_over = mig_over + over_l + over_r
+        *rows, ok = (torch.cat(t) for t in zip(unpack(from_left),
+                                                unpack(from_right)))
+    parts.append((*rows, ok))   # the last hop's arrivals are home
     all_p, all_last, all_ids, all_ok = (torch.cat(t) for t in zip(*parts))
     idx, ok, merge_over = _pack_rows(all_ok, pcfg.capacity)
     return (torch.where(ok[:, None], all_p[idx], SENTINEL),
             torch.where(ok[:, None], all_last[idx], SENTINEL),
             torch.where(ok, all_ids[idx], -1), ok,
-            mig_over + over_l + over_r, merge_over)
+            mig_over, merge_over)
 
 
 def _shard_step(cfg: SimConfig, pcfg: ParallelConfig, backend: str,

@@ -1,7 +1,8 @@
 """The rollout of the port: a step that builds no tensor from host values,
-the body a card captures as a CUDA graph (run here eagerly), the rollout
-against the Stepper loop and against JAX, partial chunks on one rollout,
-and how a captured launch is counted."""
+the body a card captures as a CUDA graph (run here eagerly, and through
+the rollout's graph path with a stand-in graph), on every backend, the
+rollout against the Stepper loop and against JAX, partial chunks on one
+rollout, and how a captured launch is counted."""
 
 import dataclasses
 import functools
@@ -18,14 +19,19 @@ from pdb_sph_tpu_torch.core import step as tstep
 from pdb_sph_tpu_torch.ops import cuda_pbf, integrate
 from pdb_sph_tpu_torch.parallel import sharded
 from pdb_sph_tpu_torch.utils import timing
+from test_torch_ranks import _EagerGraph, _NoHostValues
 
 torch.set_num_threads(1)
 
 N = 512
 
 
-def _dam(n: int = N):
-    cfg = default_config(n=n)
+def _dam(n: int = N, backend: str = "window"):
+    # the cell backend's plain passes cost max_occ x 27 x capacity^2 a
+    # pass: a table of 512 x 8 holds this dam (at most 3 a cell)
+    table = (dict(max_occupied_cells=512, cell_capacity=8, block=8)
+             if backend == "cell" else {})
+    cfg = default_config(n=n, **table)
     return cfg, spawn(cfg, "dam_break", seed=0, device="cpu")
 
 
@@ -37,9 +43,9 @@ def _equal(a, b) -> bool:
     return all(torch.equal(s, t) for s, t in zip(a, b))
 
 
-def _stepper_loop(cfg, state, steps: int):
+def _stepper_loop(cfg, state, steps: int, backend: str = "window"):
     """`steps` eager Stepper.step calls from `state`, stats summed."""
-    stepper = tstep.Stepper(cfg, "window", device="cpu")
+    stepper = tstep.Stepper(cfg, backend, device="cpu")
     total = torch.zeros((3,), dtype=torch.int32)
     for _ in range(steps):
         state, stats = stepper.step(state, with_stats=True)
@@ -56,15 +62,15 @@ def _no_host_tensors(*args, **kwargs):
     raise AssertionError("a step built a tensor from host values")
 
 
-@pytest.mark.parametrize("path", ["window", "single"])
+@pytest.mark.parametrize("path", ["window", "cell", "dense", "single"])
 def test_a_step_builds_no_tensor_from_host_values(monkeypatch, path):
     """On a card such a tensor is a copy that waits for the queued work:
     the step's constants are made when its stepper is built."""
-    cfg, st = _dam()
+    cfg, st = _dam(backend=path)
     integrate.gravity_vector.cache_clear()
     cuda_pbf.window_offsets.cache_clear()
-    if path == "window":
-        stepper = tstep.Stepper(cfg, "window", device="cpu")
+    if path != "single":
+        stepper = tstep.Stepper(cfg, path, device="cpu")
         monkeypatch.setattr(torch, "tensor", _no_host_tensors)
         out, stats = stepper.step(st, with_stats=True)
         tstep.diagnostics_fn(cfg, out)
@@ -94,19 +100,20 @@ def test_rollout_is_the_stepper_loop_and_leaves_the_input_alone():
     assert _equal(again, first) and torch.equal(again_total, ref_total)
 
 
-@pytest.mark.parametrize("path", ["window", "single"])
+@pytest.mark.parametrize("path", ["window", "cell", "dense", "single"])
 def test_the_captured_body_run_eagerly_is_the_stepper_loop(path):
     """The function a card captures, with its copy-back into the static
     inputs, over 5 steps: bitwise the eager loop."""
-    cfg, st = _dam()
-    if path == "window":
+    cfg, st = _dam(backend=path)
+    if path != "single":
         static = tuple(t.clone() for t in st)
         acc = (torch.zeros((3,), dtype=torch.int32),)
-        stepper = tstep.Stepper(cfg, "window", device="cpu")
+        stepper = tstep.Stepper(cfg, path, device="cpu")
         for _ in range(5):
             tstep.step_into(stepper, static, acc)
-        ref, ref_total = _stepper_loop(cfg, st, 5)
+        ref, ref_total = _stepper_loop(cfg, st, 5, path)
         assert _equal(static, ref) and torch.equal(acc[0], ref_total)
+        assert ref_total.tolist() == [0, 0, 0]
         return
     pcfg, sst = _one_rank(cfg, st)
     static = tuple(t.clone() for t in sst)
@@ -130,6 +137,28 @@ def test_the_captured_body_run_eagerly_is_the_stepper_loop(path):
         cfg, pcfg, None, "window", 5, "cpu")(sst)
     assert _equal(one, ref) and torch.equal(total[0], want)
     assert torch.equal(dmax[0], acc[1])
+
+
+@pytest.mark.parametrize("backend", ["window", "cell", "dense"])
+def test_the_rollout_graph_path_is_the_stepper_loop(monkeypatch, backend):
+    """A card captures every backend's Rollout: its graph path, with a
+    stand-in graph whose replay runs the captured body, over a chunk and a
+    partial chunk, gives the eager Stepper loop's bits and stats sum, and
+    builds no tensor from host values (which a capture refuses)."""
+    cfg, st = _dam(backend=backend)
+    monkeypatch.setattr(tstep, "CapturedStep", _EagerGraph)
+    rollout = tstep.make_rollout(cfg, backend, 3, with_stats=True,
+                                 device="cpu")
+    assert not rollout.graphed
+    rollout.graphed = True
+    got = want = st
+    for steps in (3, 2):
+        with _NoHostValues():
+            got, total = rollout(got, steps)
+        want, want_total = _stepper_loop(cfg, want, steps, backend)
+        assert _equal(got, want) and torch.equal(total, want_total)
+        assert total.tolist() == [0, 0, 0]
+    assert int(got.step) == 5
 
 
 def test_a_partial_chunk_runs_on_the_same_rollout():

@@ -365,7 +365,7 @@ def references():
 @pytest.mark.parametrize("D", [2, 4])
 def test_gloo_ranks_match_the_single_device_step(references, D, backend):
     cfg, st, ref = references
-    (got, stats, diag, _, dens), = launch.rollout_ranks(
+    (got, stats, diag, _, dens, _), = launch.rollout_ranks(
         cfg, st, D, [STEPS], backend=backend, devices=["cpu"] * D,
         timeout_s=RANK_TIMEOUT_S)[0]
     assert stats.shape == (D, 5) and diag.shape == (D, 3)
@@ -398,7 +398,7 @@ def test_forced_migration_overflow_is_counted(references):
     on0 = int((sharded._np_zxkey(cfg, st.x.numpy()) < b[1]).sum())
     v = st.v.clone()
     v[:, 2] = 200.0   # every particle moves a whole box up in one step
-    (got, stats, _, _, _), = launch.rollout_ranks(
+    (got, stats, _, _, _, _), = launch.rollout_ranks(
         cfg, st._replace(v=v), 2, [1], pcfg=pcfg, devices=["cpu"] * 2,
         timeout_s=RANK_TIMEOUT_S)[0]
     assert on0 > 128
@@ -408,10 +408,45 @@ def test_forced_migration_overflow_is_counted(references):
     assert torch.isfinite(got.x).all()
 
 
+@pytest.mark.parametrize("away", [2, 3])
+def test_a_particle_ranks_away_arrives_within_the_step(references, away):
+    """The soak's fault (the blowup at D = 8 on the CPU, the 1M blowup at
+    D = 4 on the cards): a particle whose predicted key lies `away` slabs
+    on goes all the way in the step, through the ranks between, where JAX
+    takes it one rank and counts an overflow. Here one particle of rank 0
+    is sent to the middle of rank `away`'s slab, above the fluid: no
+    counter fires, and the step is the single device's."""
+    cfg, st, _ = references
+    D, w = 4, cfg.nb_grid_width
+    b = sharded.initial_bounds(cfg, D, state=st)
+    key = sharded._np_zxkey(cfg, st.x.numpy())
+    i = int(np.argmin(key))
+    target_key = (int(b[away]) + int(b[away + 1])) // 2
+    # a boundary moves at most w keys a step
+    assert b[away] + w < target_key < b[away + 1] - w
+    target = torch.tensor([(target_key % w + 0.5) * cfg.nb_cell,
+                           cfg.wall - cfg.nb_cell,
+                           (target_key // w + 0.5) * cfg.nb_cell])
+    v = st.v.clone()
+    g = torch.tensor([0.0, cfg.gravity, 0.0])
+    v[i] = (target - st.x[i]) / cfg.dt / cfg.velocity_damp - cfg.dt * g
+    moved = st._replace(v=v)
+    (got, stats, diag, _, _, _), = launch.rollout_ranks(
+        cfg, moved, D, [1], devices=["cpu"] * D,
+        timeout_s=RANK_TIMEOUT_S)[0]
+    assert stats[:, 1:].sum() == 0, stats.tolist()
+    assert stats[:, 0].sum() == cfg.n and diag[:, 2].sum() == 0
+    want_x, _, _ = _single(cfg, moved, "window", steps=1)
+    assert sharded._np_zxkey(cfg, want_x[i:i + 1].numpy())[0] == target_key
+    np.testing.assert_allclose(got.x.numpy(), want_x.numpy(), rtol=X_RTOL,
+                               atol=X_ATOL)
+
+
 @pytest.mark.parametrize("case", ["rank_raises", "time_limit"])
 def test_rank_failure_fails_the_run(references, case):
     """A rank that raises, or ranks that outlive their time limit, fail the
-    run, and no rank is left behind."""
+    run, and no rank is left behind: the error carries the rank's
+    traceback, or every rank's last note."""
     cfg, st, _ = references
     if case == "rank_raises":
         bad = sharded.ParallelConfig(n_devices=2, capacity=128,
@@ -420,7 +455,9 @@ def test_rank_failure_fails_the_run(references, case):
     else:
         run = dict(chunks=[100_000], timeout_s=1.0)
     with pytest.raises(launch.RankFailure,
-                       match="failed" if case == "rank_raises" else "limit"):
+                       match=r"failed: Traceback(?s:.*)ValueError: shard"
+                       if case == "rank_raises" else
+                       r"limit of 1.0 s; last notes: rank 0: .*; rank 1: "):
         launch.rollout_ranks(cfg, st, 2, devices=["cpu"] * 2, **run)
     assert not multiprocessing.active_children()
 

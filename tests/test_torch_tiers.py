@@ -75,7 +75,7 @@ def references():
 def test_two_tier_flow_matches_the_single_device_step(references, D,
                                                       backend):
     cfg, st, want = references[backend]
-    (mid, s1, d1, _, _), (got, s2, d2, _, g2) = launch.rollout_ranks(
+    (mid, s1, d1, _, _, _), (got, s2, d2, _, g2, _) = launch.rollout_ranks(
         cfg, st, D, [SPAWN_STEPS, COMPACT_STEPS], backend,
         devices=["cpu"] * D, retier=1, timeout_s=RANK_TIMEOUT_S)[0]
     spawn_tier = sharded.ParallelConfig.create(cfg, D, state=st)
