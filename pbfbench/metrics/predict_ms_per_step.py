@@ -1,0 +1,10 @@
+"""predict_ms_per_step: device ms a step of predict and the cell ids (the
+program's stage predict+cell_ids), from the program's stage map of its
+captured step held against the traced replays (stages.py): the busy time of
+the stage's own ops, their intervals merged, with no gap counted."""
+
+from pbfbench import stages
+
+
+def read(ctx):
+    return stages.group_ms(ctx, "predict")

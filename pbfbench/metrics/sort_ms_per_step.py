@@ -1,0 +1,10 @@
+"""sort_ms_per_step: device ms a step of the stable sort by cell id and the
+payload gathers (the stage sort+gather), from the program's stage map of
+its captured step held against the traced replays (stages.py): the busy
+time of the stage's own ops, their intervals merged, with no gap counted."""
+
+from pbfbench import stages
+
+
+def read(ctx):
+    return stages.group_ms(ctx, "sort")

@@ -268,6 +268,10 @@ def _run(args, cfg: SimConfig, state, device: torch.device,
 
     prof = _start_profiler(device) if args.profile else None
     done = 0
+    # the window plans' candidate pairs, read at each record's fence
+    counter = (rollout.stepper.counters["plan_candidates"]
+               if rollout.stepper.backend == "window" else None)
+    counted = (0, 0)  # (steps the stepper took, candidate pairs) so far
     t_start = time.perf_counter()
     try:
         while done < args.steps:
@@ -290,6 +294,13 @@ def _run(args, cfg: SimConfig, state, device: torch.device,
                 "plan_overflow": ovf[1],
                 "nan_detected": ovf[2] > 0,
             }
+            if counter is not None:
+                # the chunk's fence has drained the stream: a copy, no wait;
+                # a capture's warm-up step counts in both
+                now = (rollout.stepped, int(counter))
+                record["plan_candidates_per_step"] = (
+                    (now[1] - counted[1]) / (now[0] - counted[0]))
+                counted = now
             if args.metrics_every and done % args.metrics_every == 0:
                 d = diagnostics_fn(cfg, state, rollout.stepper.scratch)
                 record.update(

@@ -33,11 +33,25 @@ call captures one step (`CapturedStep`, whose body is `step_into`), and
 every call replays it once a step. On the CPU a Rollout is a Python loop
 over `Stepper.step`. Either way it sums the per-step stats vector
 [table_overflow, plan_overflow, nonfinite] on the device.
+
+What the program measures of itself, for a profiler's user (utils/timing):
+- the stage map of the captured step (`timing.last_stage_map()`): the
+  stage names that `step_fn`, `cuda_pbf.solve` and `step_into` mark, each
+  with its range of the graph's device-op nodes, recorded at capture;
+- `Stepper.counters["plan_candidates"]`: the (own row, candidate) pairs
+  that the window plans handed the pair kernels, summed over every step the
+  stepper took, on the device;
+- while a torch.profiler session records, the spans `pbf.rollout` of each
+  Rollout call and, inside it, `pbf.rollout.capture` (first call),
+  `.zero`, `.copy_in`, `.replay` and `.copy_out`, and the counters over the
+  session's calls (`timing.last_session()`), with the host time of the
+  untraced calls before the session.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -48,6 +62,7 @@ from ..ops.collide import finalize
 from ..ops.integrate import gravity_vector, predict
 from ..ops.smoothing import f32
 from ..state import SimState, StepDiagnostics
+from ..utils import timing
 from ..utils.platform import resolve_device
 
 BACKENDS = ("window", "cell", "dense", "auto")
@@ -83,17 +98,21 @@ def sort_cells(cfg: SimConfig, cid: torch.Tensor):
 def step_fn(cfg: SimConfig, backend: str, state: SimState,
             bufs: tuple[torch.Tensor, torch.Tensor] | None = None,
             with_stats: bool = False, mark: Mark | None = None,
-            scratch: cuda_pbf.PairScratch | None = None):
+            scratch: cuda_pbf.PairScratch | None = None,
+            counters: dict[str, torch.Tensor] | None = None):
     """One step. with_stats=True also returns the (3,) int32 vector
     [table_overflow, plan_overflow, nonfinite]: the cell table's drops on
     the `cell` backend; the window plan has no capacity, so plan_overflow
-    is 0. `mark(name)`, if given, is
-    called after each stage, for stage timing. `bufs` and `scratch` are
-    the solve's (cuda_pbf.solve)."""
+    is 0. `mark(name)` is called after each stage: predict+cell_ids,
+    sort+gather, plan (solve on the cell backend), density and project
+    once an iteration (cuda_pbf.solve), finalize; by default
+    `timing.mark_stage`, which records the stage map of a capture. `bufs`
+    and `scratch` are the solve's (cuda_pbf.solve). On the window backend
+    the plan's candidate pairs, own rows x candidates, are added into
+    `counters["plan_candidates"]` (a 0-dim int64 tensor) when given."""
     backend = resolve_backend(backend)
     if mark is None:
-        def mark(_name):
-            return None
+        mark = timing.mark_stage
     zero2 = torch.zeros((2,), dtype=torch.int32, device=state.x.device)
 
     if backend == "dense":
@@ -120,6 +139,9 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     else:
         plan = cuda_pbf.build_plan(cfg, sorted_cid)
         overflow = torch.stack([zero2[0], plan.n_overflow])
+        if counters is not None:
+            counters["plan_candidates"].add_(plan.n_candidates,
+                                             alpha=cfg.geom.own)
         mark("plan")
         p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch)
     x, v = finalize(cfg, p_solved, last_s)
@@ -180,7 +202,12 @@ def make_constants(cfg: SimConfig, device: torch.device) -> None:
 
 
 class Stepper:
-    """SimState -> SimState for one config, backend and device."""
+    """SimState -> SimState for one config, backend and device.
+
+    `counters` holds the program's cumulative device counters, made here
+    (outside any graph's memory pool) and never zeroed: "plan_candidates",
+    the window plans' (own row, candidate) pairs over every step taken,
+    the warm-up step of a capture included (step_fn)."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  device: torch.device | str = "cuda"):
@@ -189,6 +216,8 @@ class Stepper:
         self.backend = resolve_backend(backend)
         self.device = resolve_device(device)
         make_constants(cfg, self.device)
+        self.counters = {"plan_candidates": torch.zeros(
+            (), dtype=torch.int64, device=self.device)}
         self.bufs = self.scratch = None
         if self.backend == "window":
             n_pad = cuda_pbf.pad_to_chunks(cfg, cfg.n)
@@ -214,7 +243,7 @@ class Stepper:
         self.check(state)
         return step_fn(self.cfg, self.backend, state, self.bufs,
                        with_stats=with_stats, mark=mark,
-                       scratch=self.scratch)
+                       scratch=self.scratch, counters=self.counters)
 
     def __call__(self, state: SimState) -> SimState:
         return self.step(state)
@@ -224,11 +253,13 @@ def step_into(stepper: Stepper, state: Sequence[torch.Tensor],
               acc: Sequence[torch.Tensor]) -> None:
     """One step of `stepper` that writes the next state back into the
     tensors of `state` (x, v, ids, step) and adds its stats into acc[0]:
-    the body that a Rollout captures."""
+    the body that a Rollout captures. Its copy-back and stats are the
+    stage "epilogue" of the stage map."""
     out, stats = stepper.step(SimState(*state), with_stats=True)
     for dst, src in zip(state, out):
         dst.copy_(src)
     acc[0].add_(stats)
+    timing.mark_stage("epilogue")
 
 
 class CapturedStep:
@@ -245,7 +276,11 @@ class CapturedStep:
     the body reads (a Stepper's buffers and scratch, the constants) keeps
     its address for the graph's lifetime, which `release` ends. A failed
     capture or replay raises: nothing falls back to running the body
-    eagerly."""
+    eagerly.
+
+    The capture records the stage map of what the body marks
+    (utils/timing.stage_map, read by `timing.last_stage_map()`): each
+    stage's range of the graph's device-op nodes."""
 
     def __init__(self, body: Callable, state: Sequence[torch.Tensor],
                  acc: Sequence[torch.Tensor]):
@@ -253,23 +288,30 @@ class CapturedStep:
         self.state = tuple(t.clone() for t in state)
         self.acc = tuple(t.clone() for t in acc)
         self.graph = torch.cuda.CUDAGraph()
-        with cuda_pbf.captured_launches() as self.launches:
+        with cuda_pbf.captured_launches() as self.launches, \
+                timing.stage_map():
             with torch.cuda.graph(self.graph):
                 body(self.state, self.acc)
 
-    def __call__(self, state: Sequence[torch.Tensor], steps: int):
+    def __call__(self, state: Sequence[torch.Tensor], steps: int,
+                 span: Callable = timing.no_span):
         """`steps` steps from `state`, whose tensors are copied in and never
         written: (clones of the final state's tensors, clones of the
-        accumulators, zeroed first)."""
-        for a in self.acc:
-            a.zero_()
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
-        for _ in range(steps):
-            self.graph.replay()
-        cuda_pbf.add_replays(self.launches, steps)
-        return (tuple(t.clone() for t in self.state),
-                tuple(t.clone() for t in self.acc))
+        accumulators, zeroed first). Each part runs inside `span(name)`
+        (the rollout's spans, utils/timing.spans)."""
+        with span("pbf.rollout.zero"):
+            for a in self.acc:
+                a.zero_()
+        with span("pbf.rollout.copy_in"):
+            for dst, src in zip(self.state, state):
+                dst.copy_(src)
+        with span("pbf.rollout.replay"):
+            for _ in range(steps):
+                self.graph.replay()
+            cuda_pbf.add_replays(self.launches, steps)
+        with span("pbf.rollout.copy_out"):
+            return (tuple(t.clone() for t in self.state),
+                    tuple(t.clone() for t in self.acc))
 
     def release(self) -> None:
         """Free the graph, and with it its memory pool, and the static
@@ -287,7 +329,17 @@ class Rollout:
     On a card, every backend runs as a CUDA graph (`CapturedStep`,
     captured at the first call; the cell step's tables live in the graph's
     memory pool); on the CPU the steps run as a Python loop over
-    `Stepper.step`."""
+    `Stepper.step`.
+
+    `stepped` counts the steps its stepper took, a capture's warm-up step
+    included, as `Stepper.counters` count them. `session` scopes the
+    counters to the calls that a torch.profiler session records, and keeps
+    the host time of the untraced calls before it, a capture's call left
+    out (`timing.last_session()`). While a session records, a call records
+    the span `pbf.rollout` with, inside it, `pbf.rollout.capture` (the
+    first call on a card), `.zero`, `.copy_in`, `.replay` and `.copy_out`
+    (CapturedStep.__call__), or on the CPU `.replay`, the step loop. Off
+    the profiler the spans are one shared do-nothing context."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  unroll_steps: int = 1, with_stats: bool = False,
@@ -299,25 +351,39 @@ class Rollout:
         self.with_stats = with_stats
         self.graphed = self.stepper.device.type == "cuda"
         self.captured: CapturedStep | None = None
+        self.stepped = 0
+        self.session = timing.CounterSession(self.stepper.counters)
 
     def __call__(self, state: SimState, steps: int | None = None):
+        t0 = time.perf_counter()
         steps = self.unroll_steps if steps is None else steps
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         self.stepper.check(state)
-        total = torch.zeros((3,), dtype=torch.int32,
-                            device=self.stepper.device)
-        if self.graphed:
-            if self.captured is None:
-                self.captured = CapturedStep(
-                    functools.partial(step_into, self.stepper), state,
-                    (total,))
-            out, (total,) = self.captured(state, steps)
-            state = SimState(*out)
-        else:
-            for _ in range(steps):
-                state, stats = self.stepper.step(state, with_stats=True)
-                total += stats
+        capture = self.graphed and self.captured is None
+        recording = timing.recording()
+        self.session.observe(recording, steps + capture)
+        self.stepped += steps + capture
+        span = timing.spans(recording)
+        with span("pbf.rollout"):
+            total = torch.zeros((3,), dtype=torch.int32,
+                                device=self.stepper.device)
+            if self.graphed:
+                if capture:
+                    with span("pbf.rollout.capture"):
+                        self.captured = CapturedStep(
+                            functools.partial(step_into, self.stepper),
+                            state, (total,))
+                out, (total,) = self.captured(state, steps, span)
+                state = SimState(*out)
+            else:
+                with span("pbf.rollout.replay"):
+                    for _ in range(steps):
+                        state, stats = self.stepper.step(state,
+                                                         with_stats=True)
+                        total += stats
+        if not (recording or capture):
+            self.session.time_call(time.perf_counter() - t0)
         return (state, total) if self.with_stats else state
 
 

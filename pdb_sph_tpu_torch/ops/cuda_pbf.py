@@ -127,12 +127,16 @@ class WindowPlan(NamedTuple):
     seg_len: () int32 — candidates per segment: the geometry's `seg`, or
         the least length that keeps the items within the scratch's
         ITEMS_PER_CHUNK * num_chunks.
+    n_candidates: () int64 — the candidates of every chunk summed,
+        sum(end - start) over the ranges; each is a candidate of each of
+        the chunk's own rows (the step counts own x this, core/step.py).
     """
 
     ranges: torch.Tensor
     n_overflow: torch.Tensor
     seg_prefix: torch.Tensor | None = None
     seg_len: torch.Tensor | None = None
+    n_candidates: torch.Tensor | None = None
 
 
 class PairScratch(NamedTuple):
@@ -227,11 +231,14 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     start = torch.where(is_pad, torch.zeros_like(start), start)
     end = torch.where(is_pad, torch.zeros_like(end), end)
     ranges = torch.stack([start, end], dim=-1).contiguous()
-    seg_len, seg_prefix = work_table(cfg, (end - start).sum(dim=1))
+    cand = (end - start).sum(dim=1)
+    total = cand.sum(dtype=torch.int64)
+    seg_len, seg_prefix = work_table(cfg, cand, total)
     return WindowPlan(ranges=ranges,
                       n_overflow=torch.zeros((), dtype=torch.int32,
                                              device=dev),
-                      seg_prefix=seg_prefix, seg_len=seg_len)
+                      seg_prefix=seg_prefix, seg_len=seg_len,
+                      n_candidates=total)
 
 
 def restrict_plan(cfg: SimConfig, plan: WindowPlan,
@@ -250,22 +257,27 @@ def restrict_plan(cfg: SimConfig, plan: WindowPlan,
                          f"{tuple(keep.shape)}")
     ranges = torch.where(keep[:, None, None], plan.ranges,
                          torch.zeros_like(plan.ranges))
-    seg_len, seg_prefix = work_table(
-        cfg, (ranges[..., 1] - ranges[..., 0]).sum(dim=1))
+    cand = (ranges[..., 1] - ranges[..., 0]).sum(dim=1)
+    total = cand.sum(dtype=torch.int64)
+    seg_len, seg_prefix = work_table(cfg, cand, total)
     return WindowPlan(ranges=ranges, n_overflow=plan.n_overflow,
-                      seg_prefix=seg_prefix, seg_len=seg_len)
+                      seg_prefix=seg_prefix, seg_len=seg_len,
+                      n_candidates=total)
 
 
-def work_table(cfg: SimConfig, cand: torch.Tensor):
+def work_table(cfg: SimConfig, cand: torch.Tensor,
+               total: torch.Tensor | None = None):
     """(seg_len () int32, seg_prefix (chunks + 1,) int32) for chunks of
-    `cand` candidates each, on the device, with no host read.
+    `cand` candidates each, on the device, with no host read; `total`,
+    their int64 sum, is computed here unless the caller has it.
 
     seg_len is the geometry's `seg` unless the candidates would need more
     than ITEMS_PER_CHUNK * chunks items; then it is the least length that
     fits: sum(max(1, ceil(cand / L))) <= chunks + total / L <= capacity."""
     chunks = cand.shape[0]
     spare = ITEMS_PER_CHUNK * chunks - chunks  # items beyond one a chunk
-    total = cand.sum(dtype=torch.int64)
+    if total is None:
+        total = cand.sum(dtype=torch.int64)
     seg_len = ((total + (spare - 1)) // spare).clamp_(min=cfg.geom.seg)
     seg_len = seg_len.to(torch.int32)
     # ceil(cand / seg_len), and one item for a chunk without candidates
@@ -707,8 +719,9 @@ def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
     here when None), carry the ping-pong; their rows past n are never read.
     `scratch`, the pair kernels' scratch, is likewise the caller's to keep
     (allocated per pass on a card when None). Returns an (n, 3) view of the
-    first buffer. `mark(name)`, if given, is called after each pass (stage
-    timing)."""
+    first buffer. `mark(name)`, if given, is called after each pass:
+    "density", then "project" (stage timing, and the stage map of a
+    capture, core/step.step_fn)."""
     n = p_sorted.shape[0]
     if bufs is None:
         n_pad = pad_to_chunks(cfg, n)

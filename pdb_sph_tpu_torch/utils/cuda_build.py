@@ -182,4 +182,9 @@ def build_library(sources: list[Path], build_dir: Path) -> KernelLibrary:
         fn.restype = ctypes.c_int
     lib.pbf_error_string.argtypes = (ctypes.c_int,)
     lib.pbf_error_string.restype = ctypes.c_char_p
+    # (stream, graph or NULL, long long counts[4]): csrc/pbf_graph.cu
+    counts = getattr(lib, "pbf_graph_node_counts", None)
+    if counts is not None:
+        counts.argtypes = (_P, _P, ctypes.POINTER(ctypes.c_longlong))
+        counts.restype = ctypes.c_int
     return KernelLibrary(lib=lib, path=out, build_seconds=seconds, log=log)

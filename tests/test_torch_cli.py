@@ -77,8 +77,13 @@ def test_run_and_resume_give_the_jax_records(tmp_path, jax_run):
                             ["--device", "cpu"])
     jrun, jresumed, _ = jax_run
     for mine, theirs in ((run, jrun), (resumed, jresumed)):
-        assert [sorted(r) for r in mine] == [sorted(r) for r in theirs]
+        # the JAX records' fields, and the port's plan-candidate count on
+        # each progress record
+        assert [sorted(set(r) - {"plan_candidates_per_step"}) for r in mine] \
+            == [sorted(r) for r in theirs]
         assert [r["event"] for r in mine] == [r["event"] for r in theirs]
+        assert [r["event"] for r in mine if "plan_candidates_per_step" in r] \
+            == [r["event"] for r in mine if r["event"] == "progress"]
     assert [r["step"] for r in run if r["event"] == "progress"] == [2, 4]
     assert [r["step"] for r in resumed if r["event"] == "progress"] == [6]
     prog = [r for r in run if r["event"] == "progress"]
@@ -169,6 +174,36 @@ def test_overflow_gate(tmp_path, monkeypatch):
     assert _lines(m1)[-1]["plan_overflow"] == 2  # summed over the chunk
     assert cli.main(base + ["--metrics", m2, "--allow-overflow"]) == 0
     assert _lines(m2)[-1]["event"] == "done"
+
+
+def test_progress_records_the_plan_candidates_per_step(tmp_path):
+    """Each progress record of the window backend gives the plan's (own row,
+    candidate) pairs a step over its chunk, the counter's difference: here
+    against the plans of the same steps, recomputed from the states that
+    the eager Stepper loop goes through."""
+    m = str(tmp_path / "m")
+    argv = ["--n", "256", "--steps", "5", "--chunk", "2", "--device", "cpu",
+            "--metrics-every", "0", "--metrics", m]
+    assert cli.main(argv) == 0
+    got = [r["plan_candidates_per_step"] for r in _lines(m)
+           if r["event"] == "progress"]
+    cfg, state = cli._load(cli.build_parser().parse_args(argv),
+                           torch.device("cpu"))
+    stepper = tstep.Stepper(cfg, "window", device="cpu")
+    pairs = []
+    for _ in range(5):
+        before = int(stepper.counters["plan_candidates"])
+        state = stepper.step(state)
+        pairs.append(int(stepper.counters["plan_candidates"]) - before)
+    want = [sum(pairs[:2]) / 2, sum(pairs[2:4]) / 2, pairs[4]]
+    assert got == want and all(w > 0 for w in want)
+    p, _ = tstep.predict(cfg, state.x, state.v)
+    sorted_cid, _ = tstep.sort_cells(cfg, tstep.hashgrid.cell_ids(cfg, p))
+    r = tstep.cuda_pbf.build_plan(cfg, sorted_cid).ranges.long()
+    before = int(stepper.counters["plan_candidates"])
+    stepper.step(state)
+    assert int(stepper.counters["plan_candidates"]) - before \
+        == cfg.geom.own * int((r[..., 1] - r[..., 0]).sum())
 
 
 def test_refusals_exit_rc2(tmp_path, monkeypatch):

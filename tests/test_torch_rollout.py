@@ -239,8 +239,9 @@ def test_a_captured_launch_counts_at_each_replay(monkeypatch):
 
 def test_kernel_busy_merges_overlapping_kernels(tmp_path):
     """The busy share of a profiler trace: overlapping kernels count once,
-    the gaps between them are idle, events other than kernels are left
-    out."""
+    the gaps between them are idle, events other than kernels are not
+    busy; without a WINDOW annotation the span is the whole trace's, idle
+    edges included."""
     trace = tmp_path / "trace.json"
     events = [{"cat": "kernel", "name": "a", "ts": 0, "dur": 10},
               {"cat": "kernel", "name": "b", "ts": 5, "dur": 10},
@@ -249,16 +250,17 @@ def test_kernel_busy_merges_overlapping_kernels(tmp_path):
     trace.write_text(json.dumps({"traceEvents": events}))
     r = timing.kernel_busy(trace)
     assert r["kernels"] == 3 and r["kernel_ms"] == pytest.approx(0.03)
-    assert r["span_ms"] == pytest.approx(0.04)
+    assert r["span_ms"] == pytest.approx(0.1)
     assert r["busy_ms"] == pytest.approx(0.025)
-    assert r["busy_share"] == pytest.approx(0.625)
+    assert r["busy_share"] == pytest.approx(0.25)
     assert r["by_name"][0][:2] == ("a", 2)
     trace.write_text(json.dumps({"traceEvents": events[3:]}))
     assert timing.kernel_busy(trace)["busy_share"] is None
 
 
 def test_kernel_busy_reads_from_the_profiled_window_on(tmp_path):
-    """Where the host opened the profiled window, a kernel that started
+    """Where the host opened the profiled window, the busy share is taken
+    over the window's own span, idle edges included; a kernel that started
     before it (a barrier's, one rank waiting for another) is left out; the
     window's copy on the device's timeline opens nothing."""
     trace = tmp_path / "trace.json"
@@ -272,8 +274,8 @@ def test_kernel_busy_reads_from_the_profiled_window_on(tmp_path):
     trace.write_text(json.dumps({"traceEvents": events}))
     r = timing.kernel_busy(trace)
     assert r["kernels"] == 2 and r["kernel_ms"] == pytest.approx(0.02)
-    assert r["span_ms"] == pytest.approx(0.03)
-    assert r["busy_share"] == pytest.approx(2 / 3)
+    assert r["span_ms"] == pytest.approx(0.1)
+    assert r["busy_share"] == pytest.approx(0.2)
     assert [name for name, _, _ in r["by_name"]] == ["a", "b"]
 
 
