@@ -41,6 +41,9 @@ What the program measures of itself, for a profiler's user (utils/timing):
 - `Stepper.counters["plan_candidates"]`: the (own row, candidate) pairs
   that the window plans handed the pair kernels, summed over every step the
   stepper took, on the device;
+- `Stepper.counters["pair_evals"]`: the (own row, candidate) pairs that the
+  density passes' FP32 kernels evaluated after their cull, on the card
+  (csrc/pbf_window.cu; the plain versions count nothing);
 - while a torch.profiler session records, the spans `pbf.rollout` of each
   Rollout call and, inside it, `pbf.rollout.capture` (first call),
   `.zero`, `.copy_in`, `.replay` and `.copy_out`, and the counters over the
@@ -109,7 +112,9 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     `timing.mark_stage`, which records the stage map of a capture. `bufs`
     and `scratch` are the solve's (cuda_pbf.solve). On the window backend
     the plan's candidate pairs, own rows x candidates, are added into
-    `counters["plan_candidates"]` (a 0-dim int64 tensor) when given."""
+    `counters["plan_candidates"]` (a 0-dim int64 tensor) when given, and
+    the density kernels' evaluated pairs into `counters["pair_evals"]`
+    when that is there (cuda_pbf.solve)."""
     backend = resolve_backend(backend)
     if mark is None:
         mark = timing.mark_stage
@@ -143,7 +148,9 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
             counters["plan_candidates"].add_(plan.n_candidates,
                                              alpha=cfg.geom.own)
         mark("plan")
-        p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch)
+        evals = None if counters is None else counters.get("pair_evals")
+        p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch,
+                                  evals)
     x, v = finalize(cfg, p_solved, last_s)
     mark("finalize")
 
@@ -207,7 +214,9 @@ class Stepper:
     `counters` holds the program's cumulative device counters, made here
     (outside any graph's memory pool) and never zeroed: "plan_candidates",
     the window plans' (own row, candidate) pairs over every step taken,
-    the warm-up step of a capture included (step_fn)."""
+    the warm-up step of a capture included (step_fn); "pair_evals", the
+    pairs that the density passes' FP32 kernels evaluated over those steps
+    (0 on the CPU and with a tensor-core switch of the density pass on)."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  device: torch.device | str = "cuda"):
@@ -216,8 +225,9 @@ class Stepper:
         self.backend = resolve_backend(backend)
         self.device = resolve_device(device)
         make_constants(cfg, self.device)
-        self.counters = {"plan_candidates": torch.zeros(
-            (), dtype=torch.int64, device=self.device)}
+        self.counters = {name: torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+                         for name in ("plan_candidates", "pair_evals")}
         self.bufs = self.scratch = None
         if self.backend == "window":
             n_pad = cuda_pbf.pad_to_chunks(cfg, cfg.n)

@@ -669,7 +669,7 @@ struct ProjectTc {
 };
 
 template <bool kRd2Mma, bool kSumMma, int kOwn>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockThreads)
     density_tc_kernel(const float4* __restrict__ pin,
                       float4* __restrict__ pout,
                       const int* __restrict__ ranges,
@@ -684,7 +684,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kProjMma, bool kSumMma, int kOwn>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockThreads)
     project_tc_kernel(const float4* __restrict__ pin,
                       float4* __restrict__ pout,
                       const int* __restrict__ ranges,

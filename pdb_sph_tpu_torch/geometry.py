@@ -32,11 +32,13 @@ OWNS = (32, 64, 128, 256)
 # opt-in limit
 _MAX_SMEM_BYTES = 48 * 1024
 # every pair kernel's block: WARPS warps share each ring stage of STAGE_LEN
-# candidates, STAGES stages in flight (kWarps, kStageLen and kStages in
-# csrc/pair_items.cuh)
+# candidates, STAGES stages in flight, which one more warp stages (kWarps,
+# kStageLen and kStages in csrc/pair_items.cuh); a full and an empty
+# mbarrier per stage head the shared memory (kBarBytes)
 WARPS = 4
 STAGES = 3
 STAGE_LEN = 256
+_BAR_BYTES = 2 * STAGES * 8
 # the tensor-core kernels' warps that split each stage's candidates
 # (kColGroups in csrc/pbf_tc.cu); the others split the own rows
 TC_COL_GROUPS = 1
@@ -82,12 +84,28 @@ class KernelGeometry:
         return self.own * self.tc_col_groups // (16 * WARPS)
 
     @property
+    def cull_groups(self) -> int:
+        """Groups of own rows that the FP32 kernels cull each staged tile
+        against (`kCull` in csrc/pbf_window.cu): two halves of the chunk
+        where a lane holds two rows or more, else the whole chunk."""
+        return 2 if self.own >= 64 else 1
+
+    @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory per block of the FP32 kernels: the ring of
+        """Shared memory per block of the FP32 kernels. Dynamic: the ring of
         STAGES stages of float4 candidates and a float4 partial per own row
         and warp, after the stages' barriers (`smem_bytes` in
-        csrc/pair_items.cuh)."""
-        return 32 + 16 * (STAGES * STAGE_LEN + WARPS * self.own)
+        csrc/pair_items.cuh). Static (`CullShared` in csrc/pbf_window.cu):
+        the rows' keys and ranks, the partial boxes, each warp's survivor
+        lists (a float4 per candidate of its share of a stage and cull
+        group) and the warps' survivor counts, with up to 16 bytes of
+        alignment."""
+        g = self.cull_groups
+        ranked = self.own if g > 1 else 4
+        static = (8 * ranked + 4 * 6 * (WARPS + self.own // 32)
+                  + 16 * g * STAGE_LEN + 4 * WARPS + 16)
+        return (_BAR_BYTES + 16 * (STAGES * STAGE_LEN + WARPS * self.own)
+                + static)
 
     @property
     def tc_smem_bytes(self) -> int:
@@ -95,7 +113,8 @@ class KernelGeometry:
         project_tc_kernel<kProjMma>'s: the ring, a float4 partial per own
         row and column group, and two stages converted into fragment
         planes."""
-        return (32 + 16 * (STAGES * STAGE_LEN + self.tc_col_groups * self.own)
+        return (_BAR_BYTES
+                + 16 * (STAGES * STAGE_LEN + self.tc_col_groups * self.own)
                 + 2 * _PROJ_PLANE_BYTES)
 
     def validate(self) -> None:

@@ -47,6 +47,15 @@ counts the kernel launches of each wrapper and tensor-core form, so a run
 can show that its main path went through the kernels; a launch captured
 into a CUDA graph (`captured_launches`) counts once per replay
 (`add_replays`).
+
+The FP32 kernels cull each staged tile of candidates against the boxes of
+groups of the chunk's own rows and run the pair body only on the
+survivors (csrc/pbf_window.cu's header). The cull drops only pairs whose
+terms the clamp already zeroes, so the plain versions, which take every
+candidate, stay their plain versions. `cull_survivors` repeats the cull's
+predicate bit for bit in plain torch; `cull_pair_evals` counts the (own
+row, survivor) pairs that a launch evaluates, which a wrapper given
+`evals` (an int64 on the card) has the kernel add there.
 """
 
 from __future__ import annotations
@@ -532,6 +541,97 @@ def project_pass_ref(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
 
 
 # ---------------------------------------------------------------------------
+# the FP32 kernels' cull, in plain torch
+# ---------------------------------------------------------------------------
+
+# a candidate survives a group's cull while its squared distance from the
+# group's box rounds below h^2 times this (kCullMargin, csrc/pbf_window.cu)
+CULL_MARGIN = 1.0 + 2.0 ** -16
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64: the float's bits as an unsigned integer in the
+    float's order (`order_key` in csrc/pbf_window.cu)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | 1 << 31)
+
+
+def _box(rows: torch.Tensor, ok: torch.Tensor):
+    """(..., m, 3) rows and an (..., m) mask -> (lo, hi), each (..., 3),
+    over the masked rows, NaN left out as fminf and fmaxf leave it; no row:
+    (inf, -inf)."""
+    ok = ok[..., None] & ~torch.isnan(rows)
+    inf = rows.new_full((), float("inf"))
+    return (torch.where(ok, rows, inf).amin(dim=-2),
+            torch.where(ok, rows, -inf).amax(dim=-2))
+
+
+def cull_groups(cfg: SimConfig, p4: torch.Tensor, n: int):
+    """(group (chunks, own) int64, lo (chunks, G, 3), hi (chunks, G, 3)):
+    the FP32 kernels' split of each own-chunk's rows into G =
+    cfg.geom.cull_groups groups, and each group's box over its rows below
+    n, as `begin` in csrc/pbf_window.cu makes them. With two groups the
+    rows are ranked by their coordinate along the longest axis of the
+    chunk's box (the first of equal extents), with keys of the float's
+    order whose low bits are the row, and rows from n on last; the first
+    own / 2 ranks are group 0."""
+    own = cfg.geom.own
+    chunks = p4.shape[0] // own
+    rows = p4[: chunks * own, :3].reshape(chunks, own, 3)
+    valid = torch.arange(chunks * own, device=p4.device).view(chunks, own) < n
+    lo, hi = _box(rows, valid)
+    if cfg.geom.cull_groups == 1:
+        return (torch.zeros_like(valid, dtype=torch.long), lo[:, None],
+                hi[:, None])
+    ext = hi - lo
+    axis = torch.where(ext[:, 1] > ext[:, 0], 1, 0)
+    axis = torch.where(ext[:, 2] > ext.gather(1, axis[:, None])[:, 0], 2,
+                       axis)
+    coord = rows.gather(2, axis[:, None, None].expand(chunks, own, 1))[..., 0]
+    key = torch.where(valid, _order_key(coord), 0xFFFFFFFF)
+    key = key & ~(own - 1) | torch.arange(own, device=p4.device)
+    rank = (key[:, None, :] < key[:, :, None]).sum(dim=-1)
+    group = (rank >= own // 2).long()
+    boxes = [_box(rows, valid & (group == g)) for g in (0, 1)]
+    return (group, torch.stack([b[0] for b in boxes], 1),
+            torch.stack([b[1] for b in boxes], 1))
+
+
+def cull_survivors(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
+                   n: int):
+    """Yield (c0, group (b, own), keep (b, G, L) bool, idx (b, L), mask
+    (b, L)) for runs of own-chunks from c0: keep[c, g, j] says that
+    candidate j of chunk c (plan order; idx its row of p4, mask whether the
+    chunk has a j-th candidate) survives the cull against group g's box
+    (cull_groups), as `consume` in csrc/pbf_window.cu decides it, bit for
+    bit: the squared distance from the box, each difference, product and
+    sum rounded to float32 in turn, below h^2 * CULL_MARGIN."""
+    own = cfg.geom.own
+    group, lo, hi = cull_groups(cfg, p4, n)
+    h2c = p4.new_full((), f32(cfg.h2)) * p4.new_full((), CULL_MARGIN)
+    zero = p4.new_zeros(())
+    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1)
+    for c0, c1 in _chunk_batches(lens.tolist(), own):
+        idx, mask = _candidates(plan.ranges[c0:c1])
+        cand = p4[idx][:, None, :, :3]
+        e = torch.fmax(torch.fmax(lo[c0:c1, :, None] - cand,
+                                  cand - hi[c0:c1, :, None]), zero)
+        d = (e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]) \
+            + e[..., 2] * e[..., 2]
+        yield c0, group[c0:c1], (d < h2c) & mask[:, None], idx, mask
+
+
+def cull_pair_evals(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan,
+                    n: int) -> int:
+    """The (own row, survivor) pairs that one launch of an FP32 pair kernel
+    evaluates on these inputs, which it adds to its `evals` counter: each
+    survivor meets the own / G rows of its group."""
+    survivors = sum(int(keep.sum())
+                    for _, _, keep, _, _ in cull_survivors(cfg, p4, plan, n))
+    return survivors * (cfg.geom.own // cfg.geom.cull_groups)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -597,13 +697,27 @@ def _kernels_and_out(p4: torch.Tensor, out: torch.Tensor | None):
     return kernels, out, torch.cuda.current_stream(p4.device).cuda_stream
 
 
+def _evals_ptr(evals: torch.Tensor | None, p4: torch.Tensor):
+    """The FP32 kernels' `evals` argument: the counter's address, or None
+    (a null pointer) for no counter."""
+    if evals is None:
+        return None
+    if evals.dtype != torch.int64 or evals.dim() != 0 \
+            or evals.device != p4.device:
+        raise ValueError(f"evals must be a 0-dim int64 on {p4.device}, got "
+                         f"{tuple(evals.shape)} {evals.dtype} "
+                         f"{evals.device}")
+    return evals.data_ptr()
+
+
 def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
             plan: WindowPlan, n: int, out: torch.Tensor | None,
             scratch: PairScratch | None, consts: tuple) -> torch.Tensor:
-    """Launch the pair kernel `fn_name` (csrc/pbf_window.cu, or
-    csrc/pbf_tc.cu, whose `consts` lead with the pass's two switches) with
-    (p4, out, ranges, seg_prefix, seg_len, partials, counters, n, chunks,
-    own, *consts, stream), its scratch allocated here when None."""
+    """Launch the pair kernel `fn_name` (csrc/pbf_window.cu, whose `consts`
+    end with the `evals` pointer, or csrc/pbf_tc.cu, whose `consts` lead
+    with the pass's two switches) with (p4, out, ranges, seg_prefix,
+    seg_len, partials, counters, n, chunks, own, *consts, stream), its
+    scratch allocated here when None."""
     kernels, out, stream = _kernels_and_out(p4, out)
     if scratch is None:
         scratch = alloc_scratch(cfg, p4.shape[0], p4.device)
@@ -646,7 +760,8 @@ def project_consts(cfg: SimConfig) -> tuple:
 
 def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
                  out: torch.Tensor | None = None,
-                 scratch: PairScratch | None = None) -> torch.Tensor:
+                 scratch: PairScratch | None = None,
+                 evals: torch.Tensor | None = None) -> torch.Tensor:
     """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, lambda), first n rows.
 
     The port of K1, `_density_kernel` (pdb_sph_tpu/ops/pallas_pbf.py:424),
@@ -654,7 +769,8 @@ def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     CPU: density_pass_ref. CUDA: window_kernel<kLambda> in the default
     geometry, density_tc_kernel<mxu_rd2, mxu_sum> when either switch is
     on (the scratch of either allocated here when `scratch` is None); or
-    raise."""
+    raise. `window_kernel` adds the pairs it evaluated to `evals` when
+    given; the plain version and the tensor-core forms count nothing."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return density_pass_ref(cfg, p4, plan, n, out)
@@ -665,28 +781,31 @@ def density_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
         return _launch(name, "launch_density_tc", cfg, p4, plan, n, out,
                        scratch, (int(g.mxu_rd2), int(g.mxu_sum), *consts))
     return _launch("density_lambda", "launch_density_lambda", cfg, p4, plan,
-                   n, out, scratch, consts)
+                   n, out, scratch, (*consts, _evals_ptr(evals, p4)))
 
 
 def density_rho(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
                 out: torch.Tensor | None = None,
-                scratch: PairScratch | None = None) -> torch.Tensor:
+                scratch: PairScratch | None = None,
+                evals: torch.Tensor | None = None) -> torch.Tensor:
     """(n_pad, 4) positions -> (n_pad, 4) (x, y, z, rho), first n rows.
 
     The diagnostic density through K1's kernel (its kRho instantiation), in
     float32 whatever the geometry's tensor-core switches say.
-    CPU: density_rho_ref. CUDA: window_kernel<kRho>, or raise."""
+    CPU: density_rho_ref. CUDA: window_kernel<kRho>, or raise; the kernel
+    adds the pairs it evaluated to `evals` when given."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return density_rho_ref(cfg, p4, plan, n, out)
     consts = rho_consts(cfg)
     return _launch("density_rho", "launch_density_rho", cfg, p4, plan, n,
-                   out, scratch, consts)
+                   out, scratch, (*consts, _evals_ptr(evals, p4)))
 
 
 def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
                  out: torch.Tensor | None = None,
-                 scratch: PairScratch | None = None) -> torch.Tensor:
+                 scratch: PairScratch | None = None,
+                 evals: torch.Tensor | None = None) -> torch.Tensor:
     """(n_pad, 4) positions with lambda -> projected (n_pad, 4), first n
     rows, lambda carried through.
 
@@ -695,7 +814,8 @@ def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
     CPU: project_pass_ref. CUDA: window_kernel<kProject> in the default
     geometry, project_tc_kernel<mxu_proj, mxu_sum> when either switch is
     on (the scratch of either allocated here when `scratch` is None); or
-    raise."""
+    raise. `window_kernel` adds the pairs it evaluated to `evals` when
+    given."""
     _check(cfg, p4, plan, n, out)
     if p4.device.type == "cpu":
         return project_pass_ref(cfg, p4, plan, n, out)
@@ -706,12 +826,13 @@ def project_pass(cfg: SimConfig, p4: torch.Tensor, plan: WindowPlan, n: int,
         return _launch(name, "launch_project_tc", cfg, p4, plan, n, out,
                        scratch, (int(g.mxu_proj), int(g.mxu_sum), *consts))
     return _launch("project", "launch_project", cfg, p4, plan, n, out,
-                   scratch, consts)
+                   scratch, (*consts, _evals_ptr(evals, p4)))
 
 
 def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
           bufs: tuple[torch.Tensor, torch.Tensor] | None = None,
-          mark=None, scratch: PairScratch | None = None) -> torch.Tensor:
+          mark=None, scratch: PairScratch | None = None,
+          evals: torch.Tensor | None = None) -> torch.Tensor:
     """solver_iters Jacobi iterations of density -> project over the plan.
 
     p_sorted: (n, 3) cell-sorted predicted positions. `bufs`, two
@@ -721,7 +842,8 @@ def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
     (allocated per pass on a card when None). Returns an (n, 3) view of the
     first buffer. `mark(name)`, if given, is called after each pass:
     "density", then "project" (stage timing, and the stage map of a
-    capture, core/step.step_fn)."""
+    capture, core/step.step_fn). `evals`, if given, gathers the pairs that
+    the density passes' FP32 kernels evaluated (density_pass)."""
     n = p_sorted.shape[0]
     if bufs is None:
         n_pad = pad_to_chunks(cfg, n)
@@ -730,7 +852,7 @@ def solve(cfg: SimConfig, p_sorted: torch.Tensor, plan: WindowPlan,
     a, b = bufs
     a[:n, :3] = p_sorted
     for _ in range(cfg.solver_iters):
-        density_pass(cfg, a, plan, n, out=b, scratch=scratch)
+        density_pass(cfg, a, plan, n, out=b, scratch=scratch, evals=evals)
         if mark is not None:
             mark("density")
         project_pass(cfg, b, plan, n, out=a, scratch=scratch)

@@ -40,14 +40,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # never truncates them to a 32-bit int
 SIGNATURES = {
     # (pin, pout, ranges, seg_prefix, seg_len, partials, counters, n,
-    #  chunks, own, constants..., stream)
+    #  chunks, own, constants..., evals, stream)
     "launch_density_lambda": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _F, _F, _F, _F, _F, _F, _F, _P),
+                              _F, _F, _F, _F, _F, _F, _F, _P, _P),
     "launch_density_rho": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _F, _F, _F, _P),
+                           _F, _F, _F, _P, _P),
     "launch_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _P),
-    # the same, then the pass's two switches before its constants
+                       _F, _F, _F, _F, _F, _P, _P),
+    # the same without evals, then the pass's two switches before its
+    # constants
     "launch_density_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _P),
     "launch_project_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -160,7 +160,7 @@ def test_the_session_counts_exactly_the_profiled_calls():
     got = timing.last_session()
     assert got.pop("untraced_call_ms") > 0
     assert got == {"steps": 3, "plan_candidates": after - before,
-                   "untraced_calls": 1}
+                   "pair_evals": 0, "untraced_calls": 1}
     assert after > before
     # a session with no call after it is closed when it is read
     with torch.profiler.profile(activities=acts):
