@@ -12,7 +12,10 @@ seed with the control in the program's place: the program with every
 tensor-core switch of its kernel geometry on, its own path that computes
 the pair sums in a lower precision than float32 (bf16 hi/lo products),
 the step a later change would be tempted by. Each (kind, seed) prints one
-JSON line of the compared numbers. The benchmark's own runs never run this.
+JSON line of the compared numbers. A cell on ranks (a configuration with a
+`parallel` entry) runs every seed of a kind on one set of ranks
+(ranks.readings): from each seed's spawn its set-up to the compact tier,
+one segment, the check. The benchmark's own runs never run this.
 """
 
 import argparse
@@ -36,6 +39,12 @@ def readings(workload: str, seeds, geometry: dict | None, device: str,
 
     cell = harness.find_cell(workload)
     conf = {**cell.config, **(config or {})}
+    if "parallel" in conf:
+        from pbfbench import ranks
+
+        yield from ranks.readings(workload, seeds, geometry, device, config,
+                                  traffic)
+        return
     mix = harness.Traffic.of(cell.traffic, **(traffic or {}))
     dev = torch.device(device)
     program = harness.Program(conf, mix.steps_per_call, dev, geometry)

@@ -23,6 +23,10 @@ one step from each of those states of the program; the step the program
 took from it is compared with the reference's. The re-driven segment's end
 state must equal every segment's end state of the window bit for bit, which
 ties the compared steps to what the window produced.
+
+A cell whose configuration has a `parallel` entry runs on ranks, one card
+each: `run` hands it to `ranks.run`, which measures and checks it the same
+way from the compact tier's state (pbfbench/ranks.py).
 """
 
 from __future__ import annotations
@@ -54,6 +58,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "pdb_sph_tpu")
 CENSUS_POINTS = 11
 # a particle outside [-margin, wall + margin]^3 has left the box
 BOX_MARGIN = 0.25
+# a per-layer metric named so, with no reader of its own, is the mean over
+# the ranks of the metric named by the rest (`reader`)
+RANK_PREFIX = "rank_"
 
 
 def log(*parts) -> None:
@@ -109,14 +116,29 @@ def metrics_of(cell: Cell, kind: str) -> list[dict]:
 def reader(name: str) -> Callable:
     """`read(ctx)` of metrics/<name>.py, where a quantity split by the cells
     that report it (`pair_roofline.frames`) is read by the reader of its
-    name before the first dot."""
+    name before the first dot. A `rank_<name>` with no reader of its own is
+    the mean over the ranks of `<name>` read on each rank's trace."""
     name = name.split(".", 1)[0]
     path = HERE / "metrics" / f"{name}.py"
+    if not path.exists() and name.startswith(RANK_PREFIX):
+        return _rank_mean(reader(name[len(RANK_PREFIX):]))
     spec = importlib.util.spec_from_file_location(f"pbfbench_metric_{name}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def _rank_mean(read: Callable) -> Callable:
+    """`read` on a context of each rank's trace (ctx.ranks), averaged over
+    the ranks; None where it reads nothing on any rank."""
+    def mean(ctx):
+        ranks = getattr(ctx, "ranks", None) or []
+        values = [read(Context(**{**vars(ctx), "trace": t})) for t in ranks]
+        if not values or any(v is None for v in values):
+            return None
+        return sum(values) / len(values)
+    return mean
 
 
 def jax_modules() -> list[str]:
@@ -264,21 +286,24 @@ def check_phases(traffic: Traffic, seed: int) -> list[int]:
 
 
 def redrive(program: Program, start, traffic: Traffic, phases: list[int],
-            census_at: list[int]):
+            census_at: list[int], keep: Callable = lambda state: state):
     """Drive the segment again from `start`, stopping at each phase j of
     `phases` to take one step alone: returns ([(j, state j, state j + 1,
     counters of that step)], {k: positions at step k for k in census_at},
-    the end state)."""
+    the end state). The states compared and counted are `keep(state)`
+    (the rank path: collected; None on a rank that keeps nothing)."""
     steps, census, state, at = [], {}, start, 0
     for stop in sorted(set(phases) | set(census_at) | {traffic.segment_steps}):
         if stop > at:
             state, _ = program(state, stop - at)
             at = stop
         if stop in census_at:
-            census[stop] = state[0].clone()
+            kept = keep(state)
+            if kept is not None:
+                census[stop] = kept[0].clone()
         if stop in phases:
             nxt, stats = program(state, 1)
-            steps.append((stop, state, nxt, stats))
+            steps.append((stop, keep(state), keep(nxt), stats))
             state, at = nxt, stop + 1
     return steps, census, state
 
@@ -415,6 +440,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     cell = find_cell(workload)
     conf = {**cell.config, **(config or {})}
     mix = Traffic.of(cell.traffic, **(traffic or {}))
+    if "parallel" in conf:
+        from pbfbench import ranks
+
+        return ranks.run(workload, seed, seconds, trace, device=device,
+                         t_start=t_start, config=config, traffic=traffic)
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -487,22 +517,36 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
                   steps=untraced_calls * mix.steps_per_call,
                   window_s=window_s, calls_ms=calls_ms[:untraced_calls],
                   setup_s=setup_s, trace=traced, card=_card(dev))
-    kind = "per_layer" if trace else "end_to_end"
+    return result_line(cell, ctx, correct, len(calls_ms), sum(failed),
+                       [memory_peak], [] if traced is None else [traced],
+                       checks)
+
+
+def result_line(cell: Cell, ctx, correct: bool, attempted: int, failed: int,
+                memory_peaks: list[int], traced: list, checks: dict) -> dict:
+    """The run's result line: the cell's metrics read from `ctx`, per-layer
+    where the run was traced (`traced`, one summary a card), and the
+    device: `memory_peaks` one a card, the busy and traced seconds the mean
+    over the cards, the breakdown the first card's."""
+    kind = "per_layer" if traced else "end_to_end"
     metrics = {}
     for e in metrics_of(cell, kind):
         value = reader(e["name"])(ctx)
         if value is not None:
             metrics[e["name"]] = {"value": value, "unit": e["unit"]}
 
-    result = {"correct": correct, "attempted": len(calls_ms),
-              "failed": sum(failed), "metrics": metrics,
-              "device": {"platform": "gpu" if dev.type == "cuda" else "cpu",
-                         "kind": _card(dev), "count": 1,
-                         "memory_peak_bytes": memory_peak}}
-    if traced is not None:
-        result["device"]["busy_s"] = traced.busy_s
-        result["device"]["window_s"] = traced.window_s
-        result["breakdown"] = traced.breakdown
+    cuda = ctx.card != "cpu"
+    result = {"correct": correct, "attempted": attempted, "failed": failed,
+              "metrics": metrics,
+              "device": {"platform": "gpu" if cuda else "cpu",
+                         "kind": ctx.card, "count": len(memory_peaks),
+                         "memory_peak_bytes": max(memory_peaks)}}
+    if traced:
+        result["device"]["busy_s"] = sum(t.busy_s for t in traced) / len(
+            traced)
+        result["device"]["window_s"] = sum(t.window_s for t in traced) / len(
+            traced)
+        result["breakdown"] = traced[0].breakdown
         log(f"card: {_power_limit()}")
     result["checks"] = checks
     return result
@@ -520,9 +564,12 @@ def _census_mean(census_x: dict, h: float) -> float:
 
 
 def _traced_segment(program, start, mix, host, calls_ms, failed,
-                    workload: str):
-    """One segment of the window under torch.profiler; returns (its
-    summary for the readers, the end state)."""
+                    name: str, line_up: Callable = lambda: None):
+    """One segment of the window under torch.profiler, its trace in
+    build/pbfbench/trace_<name>.json; `line_up` runs under the running
+    profiler before the segment (the rank path: a collective that starts
+    the ranks together). Returns (its summary for the readers, the end
+    state)."""
     from pbfbench import trace as tr
 
     # the host's activity marks the window and labels the idle gaps; the
@@ -533,11 +580,12 @@ def _traced_segment(program, start, mix, host, calls_ms, failed,
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     first = len(calls_ms)
     with torch.profiler.profile(activities=acts) as prof:
+        line_up()
         with torch.profiler.record_function(tr.WINDOW):
             end = drive(program, start, mix, host, calls_ms, failed)
             host.sync()
     OUT.mkdir(parents=True, exist_ok=True)
-    path = OUT / f"trace_{workload}.json"
+    path = OUT / f"trace_{name}.json"
     prof.export_chrome_trace(str(path))
     w = tr.window(tr.load(path))
     calls = len(calls_ms) - first

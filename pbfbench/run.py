@@ -12,6 +12,15 @@ produced against the plain reference, and prints one JSON line last on
 standard output, each number compared beside its limit last on standard
 error. Without as many cards as the cell asks for it exits 3 and prints no
 result; with JAX loaded once the window has closed, 4.
+
+A cell whose configuration has a `parallel` entry (dam1m_d4.rollout, four
+cards) runs on the rank path (`ranks.py`): this process starts one process
+a rank through the program's launcher (`parallel/launch.py`, NCCL, one card
+each), which set up, measure and check together; rank 0's clock times the
+window, and this process prints the result line from what the ranks leave.
+A rank that raises or stalls fails the run (exit 1, no result, no rank left
+running). With `--trace 1` each rank writes its own trace,
+`build/pbfbench/trace_<cell>.rank<r>.json`.
 """
 
 import time
