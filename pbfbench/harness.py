@@ -153,16 +153,32 @@ def jax_modules() -> list[str]:
 
 def spawn(config: dict, seed: int, device: torch.device):
     """(x, v, ids, step) of the configuration's spawn from `seed`: n points
-    uniform in a box (`spawn` in the file, in units of the wall), drawn on
-    `device` in one call, at rest."""
+    drawn on `device` from the seed's own generator, at rest, uniform in
+    the `spawn` entry's shape, given in units of the wall:
+
+    - "box": `lo` and `hi` corners; one draw of n x 3 uniforms.
+    - "ball": `centre` (3 numbers) and `radius`, the blowup scene's recipe
+      (pdb_sph_tpu_torch/models/scenes.py `blowup`): a direction from a
+      normalised standard normal 3-vector, a distance R u^(1/3) (uniform in
+      volume), the point (centre + direction distance) wall.
+
+    Any other shape raises. The rank path (ranks.py) spawns through here,
+    so a cell on ranks takes either shape too."""
     s, n, wall = config["spawn"], config["n"], config["wall"]
-    if s["shape"] != "box":
-        raise ValueError(f"unknown spawn shape {s['shape']!r}")
     gen = torch.Generator(device=device).manual_seed(seed)
-    lo = torch.tensor(s["lo"], dtype=torch.float32, device=device)
-    hi = torch.tensor(s["hi"], dtype=torch.float32, device=device)
-    u = torch.rand((n, 3), generator=gen, device=device)
-    x = (lo + u * (hi - lo)) * wall
+    if s["shape"] == "ball":
+        centre = torch.tensor(s["centre"], dtype=torch.float32, device=device)
+        d = torch.randn((n, 3), generator=gen, device=device)
+        d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+        u = torch.rand((n, 1), generator=gen, device=device)
+        x = (centre + d * (s["radius"] * u ** (1.0 / 3.0))) * wall
+    elif s["shape"] == "box":
+        lo = torch.tensor(s["lo"], dtype=torch.float32, device=device)
+        hi = torch.tensor(s["hi"], dtype=torch.float32, device=device)
+        u = torch.rand((n, 3), generator=gen, device=device)
+        x = (lo + u * (hi - lo)) * wall
+    else:
+        raise ValueError(f"unknown spawn shape {s['shape']!r}")
     return (x.float().contiguous(), torch.zeros_like(x, dtype=torch.float32),
             torch.arange(n, dtype=torch.int32, device=device),
             torch.zeros((), dtype=torch.int32, device=device))

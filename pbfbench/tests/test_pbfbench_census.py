@@ -73,6 +73,6 @@ def test_the_spawn_is_the_seeds_and_fills_its_shape(spawn):
 def test_an_unknown_spawn_shape_is_refused():
     from pbfbench import harness
 
-    conf = {"spawn": {"shape": "ball"}, "n": 10, "wall": 2.0}
-    with pytest.raises(ValueError, match="ball"):
+    conf = {"spawn": {"shape": "torus"}, "n": 10, "wall": 2.0}
+    with pytest.raises(ValueError, match="torus"):
         harness.spawn(conf, 1, torch.device("cpu"))
