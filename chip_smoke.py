@@ -10,6 +10,17 @@ exits non-zero:
 
   1. device  — the card's name and power limit, torch / CUDA / nvcc versions;
   2. build   — the CUDA kernels built from csrc/ with nvcc;
+     finalize — the finalize kernel (csrc/pbf_finalize.cu) against the
+               plain torch chain it replaces on the same card tensors, bit
+               for bit, in both collide modes: rows past each of the six
+               walls moving out and in, v == 0 rows, NaN and +-inf in p and
+               in last and a NaN velocity at a wall, as contiguous rows
+               and as the solve buffer's stride-4 rows; the inputs of the
+               step's own finalize on the 80k and 1M dam breaks at steps 60
+               and 480; its flag against the old finite check; the step's
+               non-finite stat on the dense backend with a NaN, an inf and
+               (strict) a NaN velocity at a wall; the kernel's and the
+               chain's ms beside the kernel's byte bound;
   3. kernels — each kernel against its plain torch version on the same
                inputs, at the main path's shape, with errors, times, and
                each kernel's bound and share of it: the FP32 kernels
@@ -140,7 +151,11 @@ phase 7's runs and the two ranks' diagnostics, the all-switches tensor-core kern
 four one-switch instantiations' from phase 5's short rollouts; phase 8's
 paths add to the kernels they run), error and times at both steps, on the restricted
 plans, at each other own and on the 1M dam break; the
-`[done]` line before it gives the script's seconds; the last line is
+`[done]` line before it gives the script's seconds. Its last entry is
+the finalize kernel's: its launches on the main paths (phase 5's
+rollouts, the fast path, the two ranks and phase 8's runs), bitwise the
+chain (max_abs_err 0), its ms and the chain's at 80k and 1M at both
+steps, and its byte bound (52 B a particle). The last line is
 {"ok": true, "device": {...}}. Without a card, or without the package beside it, the
 script exits non-zero and prints no result.
 """
@@ -417,6 +432,186 @@ def phase_build() -> None:
           f"(load total {total:.2f} s); ptxas (template arguments: pass or "
           f"switches, rows per lane or own): "
           + "; ".join(ptxas_registers(kl.log)))
+
+
+def _finalize_rows(device, n: int = 1024, nonfinite: bool = True):
+    """(p, last) on `device`: rows past each of the six walls, moving out
+    of and into the box, v == 0 rows (tests/test_torch_ops.py's), and with
+    `nonfinite` NaN and +-inf in p and in last and a NaN velocity at the
+    wall x = 0."""
+    import numpy as np
+    from pdb_sph_tpu_torch.ops import collide
+
+    rng = np.random.default_rng(2)
+    last = (rng.random((n, 3)) * 2.0).astype(np.float32)
+    p = (rng.random((n, 3)) * 3.0 - 0.5).astype(np.float32)
+    for k, (axis, upper) in enumerate(collide._WALL_ORDER):
+        rows = slice(k * 64, (k + 1) * 64)
+        p[rows, axis] = 2.2 if upper else -0.2
+        last[rows, axis] = np.where(np.arange(64) % 2, 1.0,
+                                    2.4 if upper else -0.4)
+    last[-4:] = p[-4:]
+    if nonfinite:
+        p[400, 1], p[401, 0], p[402, 2] = np.nan, np.inf, -np.inf
+        last[403, 0], last[404, 2] = np.nan, -np.inf
+        p[405, 0], last[405, 0] = -0.2, np.nan
+        # NaN velocities at an upper wall and at a later wall's axis
+        p[406, 2], last[406, 2] = 2.2, np.nan
+        p[407, 1], last[407, 0] = -0.2, np.inf
+    return (torch.from_numpy(p).to(device), torch.from_numpy(last).to(device))
+
+
+def _finalize_check(cfg, p, last) -> list[str]:
+    """The kernel against the plain chain on the same card tensors in both
+    collide modes: the faults found (coordinates whose bits differ, a flag
+    other than the old finite check's, a launch not counted once)."""
+    import dataclasses
+
+    from pdb_sph_tpu_torch.ops import collide, cuda_pbf
+
+    bad = []
+    for strict in (False, True):
+        c = dataclasses.replace(cfg, strict_reference_collide=strict)
+        before = cuda_pbf.LAUNCHES["finalize"]
+        got = collide.finalize(c, p, last)
+        if cuda_pbf.LAUNCHES["finalize"] != before + 1 \
+                or not isinstance(got, collide.Finalized):
+            bad.append(f"strict {strict}: the kernel did not run once")
+        want = collide.finalize_ref(c, p, last)
+        for name, a, b in zip("xv", got, want):
+            diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            if diff:
+                bad.append(f"strict {strict}: {diff} coordinates of {name} "
+                           "differ from the chain's bits")
+        flag, old = int(got.nonfinite), int(collide.nonfinite(*want))
+        if flag != old or int(collide.nonfinite(*got)) != old:
+            bad.append(f"strict {strict}: flag {flag}, old check {old}")
+    return bad
+
+
+def _graph_ms(fn, reps: int = REPS) -> float:
+    """Device ms a call of `fn`, from `reps` calls captured into one CUDA
+    graph and replayed between two CUDA events."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with cuda_pbf.captured_launches(), torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    g.reset()
+    return ms
+
+
+def phase_finalize(device) -> dict:
+    """The finalize kernel bit for bit against the plain chain
+    (_finalize_check) on the wall rows, then on the inputs of the step's
+    own finalize (the solve buffer's rows, and a contiguous copy) on the
+    80k and the 1M dam break at steps 60 and 480, each timed beside its
+    byte bound; the step's non-finite stat on the dense backend. Returns
+    {(n, step): (kernel ms, chain ms, bound ms)}."""
+    import dataclasses
+
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.core import step as core_step
+    from pdb_sph_tpu_torch.ops import collide
+
+    bad = []
+    cfg = pbf.default_config(n=N_MAIN)
+    for nonfinite in (False, True):
+        p, last = _finalize_rows(device, nonfinite=nonfinite)
+        buf = torch.zeros((p.shape[0] + 64, 4), device=device)
+        buf[:p.shape[0], :3] = p
+        for layout, q in (("rows", p),
+                          ("stride-4 rows", buf[:p.shape[0], :3])):
+            bad += [f"wall rows ({layout}, non-finite rows {nonfinite}): {b}"
+                    for b in _finalize_check(cfg, q, last)]
+    print(f"[finalize] the wall rows (1024, past each wall out and in, "
+          f"v == 0, NaN and inf in p and last, NaN velocities at walls), "
+          f"contiguous and stride-4 rows, both collide modes: kernel bitwise "
+          f"the chain and its flag the old check's: {not bad}")
+
+    times, seen, real = {}, [], core_step.finalize
+
+    def record(c, p, last):
+        seen.append((p, last))
+        return real(c, p, last)
+
+    _, n1m, wall1m = SCALE_ROWS["dam1m"]
+    for n, wall in ((N_MAIN, 2.0), (n1m, wall1m)):
+        cfg = pbf.default_config(n=n, wall=wall)
+        stepper = pbf.make_step(cfg, "window", device=device)
+        rollout = pbf.make_rollout(cfg, "window", SETTLE_STEPS,
+                                   device=device)
+        state = rollout(pbf.spawn(cfg, "dam_break", seed=0, device=device))
+        for step in (SETTLE_STEPS, SETTLED_STEP):
+            if step > int(state.step):
+                state = rollout(state, step - int(state.step))
+            core_step.finalize = record
+            try:
+                stepper.step(state)
+            finally:
+                core_step.finalize = real
+            p, last = seen.pop()
+            if p.stride(0) != 4:
+                bad.append(f"n {n} step {step}: the step's p has row stride "
+                           f"{p.stride(0)}, not the solve buffer's 4")
+            for layout, q in (("stride-4 rows", p), ("rows", p.contiguous())):
+                bad += [f"n {n} step {step} ({layout}): {b}"
+                        for b in _finalize_check(cfg, q, last)]
+            kernel = _graph_ms(lambda: collide.finalize(cfg, p, last))
+            chain = _graph_ms(lambda: collide.nonfinite(
+                *collide.finalize_ref(cfg, p, last)))
+            bound = 52 * n / PEAK_BYTES * 1e3
+            times[(n, step)] = (kernel, chain, bound)
+            print(f"[finalize] dam n={n} step {step}: the step's own inputs "
+                  f"(stride-4 rows and a contiguous copy), both modes, "
+                  f"bitwise the chain: "
+                  f"{not any(f'n {n} step {step}' in b for b in bad)}; "
+                  f"kernel {kernel:.4f} ms a call (its flag's memset "
+                  f"included) against the chain and finite check {chain:.4f} "
+                  f"ms ({chain / kernel:.1f}x); bound 52 B x n / "
+                  f"{PEAK_BYTES / 1e12:g} TB/s = {bound * 1e3:.2f} us "
+                  f"({100 * bound / kernel:.1f} % of it)")
+        del stepper, rollout, state, p, last
+        torch.cuda.empty_cache()
+
+    # the step's stats[2], the flag, on the dense backend (plain all-pairs
+    # solve, so a non-finite state touches no pair kernel)
+    cfg = pbf.default_config(n=N_ORACLE)
+    cases = {"all finite": (False, None), "NaN in x": (False, ("x", 7, 1)),
+             "inf in v": (False, ("v", 7, 0)),
+             "strict NaN velocity at a wall": (True, ("x", 7, 0))}
+    values = {"NaN in x": float("nan"), "inf in v": float("inf"),
+              "strict NaN velocity at a wall": float("-inf")}
+    got = {}
+    for case, (strict, plant) in cases.items():
+        c = dataclasses.replace(cfg, strict_reference_collide=strict)
+        st = pbf.spawn(c, "dam_break", seed=0, device=device)
+        if plant is not None:
+            name, row, axis = plant
+            t = getattr(st, name).clone()
+            t[row, axis] = values[case]
+            st = st._replace(**{name: t})
+        out, stats = core_step.step_fn(c, "dense", st, with_stats=True)
+        old = int(collide.nonfinite(out.x, out.v))
+        got[case] = stats.tolist()
+        if got[case] != [0, 0, int(plant is not None)] or old != got[case][2]:
+            bad.append(f"dense step, {case}: stats {got[case]}, old finite "
+                       f"check {old}")
+    print(f"[finalize] the step's stats on the dense backend at "
+          f"{N_ORACLE}: {got}")
+    if bad:
+        raise AssertionError("finalize: " + "; ".join(bad))
+    return times
 
 
 def _sorted_p4(cfg, x: torch.Tensor):
@@ -966,9 +1161,10 @@ def phase_main(device, card: str, geom=None, n: int = N_MAIN,
             or settle_stats.tolist() != [0, 0, 0]:
         raise AssertionError("main path state or stats are wrong")
     if any(launches[k] != want for k in expect) \
-            or any(launches[k] for k in idle):
-        raise AssertionError(f"expected {want} launches of each of {expect} "
-                             f"and none of {idle}, got {launches}")
+            or any(launches[k] for k in idle) or launches["finalize"] != steps:
+        raise AssertionError(f"expected {want} launches of each of {expect}, "
+                             f"none of {idle} and {steps} of finalize, got "
+                             f"{launches}")
 
     if rollout.stepper.scratch is not scratch \
             or [t.data_ptr() for t in scratch] != ptrs \
@@ -1096,9 +1292,11 @@ def phase_graph(device, card: str, out_dir: str, geom=None,
     expect, idle = _solve_kernels(cfg.geom)
     want = cfg.solver_iters * ROLLOUT_STEPS
     if any(launches[k] != want for k in expect) \
-            or any(launches[k] for k in idle):
-        raise AssertionError(f"expected {want} launches of each of {expect} "
-                             f"and none of {idle}, got {launches}")
+            or any(launches[k] for k in idle) \
+            or launches["finalize"] != ROLLOUT_STEPS:
+        raise AssertionError(f"expected {want} launches of each of {expect}, "
+                             f"none of {idle} and {ROLLOUT_STEPS} of "
+                             f"finalize, got {launches}")
     return {"rates": rates, "first_s": first_s,
             "profile": {m: {k: v for k, v in r.items() if k != "by_name"}
                         for m, r in prof.items()}}
@@ -1345,7 +1543,8 @@ def phase_c2(device, state60, n: int = N_MAIN) -> dict:
         finite = bool(torch.isfinite(st.x).all())
         print(f"[c2] own {own}: {C2_STEPS}-step rollout stats "
               f"{stats.tolist()}, finite {finite}, launches {launches}")
-        want = dict.fromkeys(SOLVE_KERNELS, 3 * (C2_STEPS + WARMUP_STEPS))
+        want = {**dict.fromkeys(SOLVE_KERNELS, 3 * (C2_STEPS + WARMUP_STEPS)),
+                "finalize": C2_STEPS + WARMUP_STEPS}
         if stats.tolist() != [0, 0, 0] or not finite or launches != want:
             raise AssertionError(f"own {own}: rollout stats or launches "
                                  "are wrong")
@@ -1467,8 +1666,10 @@ def phase_fastpath(device, card: str, n: int = N_MAIN, wall: float = 2.0,
     if stats.tolist() != [[n, 0, 0, 0, 0]] or diag[0, 1:].any():
         raise AssertionError("one-rank rollout stats are wrong")
     want = 3 * (SHARD_ROLLOUT + WARMUP_STEPS)
-    if launches["density_lambda"] != want or launches["project"] != want:
-        raise AssertionError(f"expected {want} solve launches: {launches}")
+    if launches["density_lambda"] != want or launches["project"] != want \
+            or launches["finalize"] != want // 3:
+        raise AssertionError(f"expected {want} solve launches and "
+                             f"{want // 3} of finalize: {launches}")
     return launches
 
 
@@ -1927,9 +2128,11 @@ def phase_scale_rollout(device, card: str, row: str, out_dir: str,
             or diag["n_escaped"] or diag["nan"]:
         raise AssertionError(f"{row} {name}: state or stats are wrong")
     want = cfg.solver_iters * steps
-    if any(timed[k] != want for k in expect) or any(timed[k] for k in idle):
+    if any(timed[k] != want for k in expect) or any(timed[k] for k in idle) \
+            or timed["finalize"] != steps:
         raise AssertionError(f"{row}: expected {want} timed launches of each "
-                             f"of {expect} and none of {idle}: {timed}")
+                             f"of {expect}, none of {idle} and {steps} of "
+                             f"finalize: {timed}")
     return {"launches": launches, "step": int(state.step), **diag}
 
 
@@ -1990,9 +2193,11 @@ def phase_scale_blowup(device, card: str, row: str = "blowup1m") -> dict:
         raise AssertionError(f"{row}: state, stats or escapes are wrong")
     want = cfg.solver_iters * (BLOWUP_STEPS + WARMUP_STEPS * rollout.graphed)
     if any(launches[k] != want for k in SOLVE_KERNELS) \
-            or launches["density_rho"] != len(records):
-        raise AssertionError(f"{row}: expected {want} solve launches and "
-                             f"{len(records)} rho launches: {launches}")
+            or launches["density_rho"] != len(records) \
+            or launches["finalize"] != want // cfg.solver_iters:
+        raise AssertionError(f"{row}: expected {want} solve launches, "
+                             f"{len(records)} rho launches and one finalize "
+                             f"a step: {launches}")
     return launches
 
 
@@ -2619,11 +2824,12 @@ def _nccl_run(D: int, job: dict, timeout_s: float = RANKS_TIMEOUT_S):
 
 def _check_launches(tag: str, launches: dict, expect: tuple, want: int,
                     rho: int = 0) -> None:
-    """Raise unless `expect`'s kernels launched `want` times each, the rho
-    kernel `rho` times and nothing else."""
+    """Raise unless `expect`'s kernels launched `want` times each (three
+    solver iterations a step), finalize once a step, the rho kernel `rho`
+    times and nothing else."""
     got = _nonzero(launches)
-    need = {**dict.fromkeys(expect, want), **({"density_rho": rho}
-                                                if rho else {})}
+    need = {**dict.fromkeys(expect, want), "finalize": want // 3,
+            **({"density_rho": rho} if rho else {})}
     if got != need:
         raise AssertionError(f"{tag}: launches {got}, expected {need}")
 
@@ -2749,7 +2955,8 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
         a, b = t["spawn"], t["compact"]
         if not (b["slots"] < a["slots"] and b["peak_gib"] < a["peak_gib"]):
             bad.append(f"rank {r}: the compact tier is not smaller")
-        want = dict.fromkeys(SOLVE_KERNELS, 3 * (steps + WARMUP_STEPS))
+        want = {**dict.fromkeys(SOLVE_KERNELS, 3 * (steps + WARMUP_STEPS)),
+                "finalize": steps + WARMUP_STEPS}
         if _nonzero(b["launches"]) != want:
             bad.append(f"rank {r}: compact launches {b['launches']}")
     for name in ("spawn", "compact"):
@@ -3353,6 +3560,7 @@ def main(argv=None) -> int:
                              "build")
     card = phase_device()
     phase_build()
+    fin = phase_finalize(device)
     kern, state60 = phase_kernels(device)
     owns = phase_c2(device, state60)
     restricted = phase_restricted(device, state60)
@@ -3436,6 +3644,27 @@ def main(argv=None) -> int:
          "bound_by_1m": scale_kern[k][3], "max_abs_err_1m": scale_kern[k][0]}
         for k in KERNELS
     ]
+    # finalize: once a step on every path that steps; bitwise the chain
+    # (phase_finalize raises otherwise), so its error is 0
+    fin_runs = [launches, tc_main, fast, ranks, *scale]
+    report.append({
+        "name": "finalize_kernel", "route": "cuda",
+        "source": "pdb_sph_tpu_torch/csrc/pbf_finalize.cu",
+        "replaces": "none: the JAX package's finalize is plain XLA "
+                    "(pdb_sph_tpu/ops/collide.py)",
+        "launches": sum(run["finalize"] for run in fin_runs),
+        "launches_from": "phase 5's two geometries, the fast paths, the "
+                         "two ranks, [scale]'s rollouts, blowup and runner",
+        "max_abs_err": 0.0, "ms": fin[(N_MAIN, SETTLE_STEPS)][0],
+        "plain_ms": fin[(N_MAIN, SETTLE_STEPS)][1],
+        "bound_ms": fin[(N_MAIN, SETTLE_STEPS)][2], "bound_by": "bytes",
+        "library_ms": None,
+        f"ms_step{SETTLED_STEP}": fin[(N_MAIN, SETTLED_STEP)][0],
+        f"bound_ms_step{SETTLED_STEP}": fin[(N_MAIN, SETTLED_STEP)][2],
+        "ms_1m": fin[(n1m, SETTLE_STEPS)][0],
+        "plain_ms_1m": fin[(n1m, SETTLE_STEPS)][1],
+        "bound_ms_1m": fin[(n1m, SETTLE_STEPS)][2], "bound_by_1m": "bytes",
+        f"ms_1m_step{SETTLED_STEP}": fin[(n1m, SETTLED_STEP)][0]})
     if any(r["launches"] <= 0 for r in report):
         raise AssertionError(f"a kernel was not launched: {report}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s from the start of "

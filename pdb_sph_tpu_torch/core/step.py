@@ -8,6 +8,8 @@ One step of the `window` backend (the counterpart of the JAX package's
     candidate-window plan                     ops.cuda_pbf.build_plan
     solver_iters x (density -> project)       ops.cuda_pbf.solve
     finalize with the 6-wall collision        ops.collide.finalize
+      (on a card one kernel, csrc/pbf_finalize.cu, which also raises
+      the step's non-finite flag)
 
 `cell` solves over the cell table instead (ops.hashgrid.build_grid,
 ops.cell_list.solve_cell_list, plain torch, the JAX package's `cell`
@@ -61,7 +63,7 @@ import torch
 
 from ..config import SimConfig
 from ..ops import cell_list, cuda_pbf, dense, hashgrid
-from ..ops.collide import finalize
+from ..ops.collide import Finalized, finalize, nonfinite
 from ..ops.integrate import gravity_vector, predict
 from ..ops.smoothing import f32
 from ..state import SimState, StepDiagnostics
@@ -80,10 +82,15 @@ def resolve_backend(backend: str) -> str:
     return "window" if backend == "auto" else backend
 
 
-def _stats(overflow2: torch.Tensor, x: torch.Tensor,
-           v: torch.Tensor) -> torch.Tensor:
-    finite = torch.isfinite(x).all() & torch.isfinite(v).all()
-    return torch.cat([overflow2, (~finite).to(torch.int32)[None]])
+def _stats(overflow2: torch.Tensor, done) -> torch.Tensor:
+    """[*overflow2, nonfinite] of finalize's result `done`: the flag that
+    the card's kernel raised (collide.Finalized), or on the CPU its plain
+    version."""
+    if isinstance(done, Finalized):
+        flag = done.nonfinite
+    else:
+        flag = nonfinite(*done)
+    return torch.cat([overflow2, flag])
 
 
 def sort_cells(cfg: SimConfig, cid: torch.Tensor):
@@ -121,9 +128,10 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     zero2 = torch.zeros((2,), dtype=torch.int32, device=state.x.device)
 
     if backend == "dense":
-        x, v = dense.step_dense(cfg, state.x, state.v)
+        done = dense.step_dense(cfg, state.x, state.v)
+        x, v = done
         out = SimState(x=x, v=v, ids=state.ids, step=state.step + 1)
-        return (out, _stats(zero2, x, v)) if with_stats else out
+        return (out, _stats(zero2, done)) if with_stats else out
 
     p, _ = predict(cfg, state.x, state.v)
     cid = hashgrid.cell_ids(cfg, p)
@@ -151,11 +159,12 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
         evals = None if counters is None else counters.get("pair_evals")
         p_solved = cuda_pbf.solve(cfg, p_s, plan, bufs, mark, scratch,
                                   evals)
-    x, v = finalize(cfg, p_solved, last_s)
+    done = finalize(cfg, p_solved, last_s)
+    x, v = done
     mark("finalize")
 
     out = SimState(x=x, v=v, ids=ids_s, step=state.step + 1)
-    return (out, _stats(overflow, x, v)) if with_stats else out
+    return (out, _stats(overflow, done)) if with_stats else out
 
 
 def diagnostics_fn(cfg: SimConfig, state: SimState,

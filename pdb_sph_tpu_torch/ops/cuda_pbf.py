@@ -74,11 +74,12 @@ NUM_WINDOWS = 9
 
 # Kernel launches per wrapper since the last reset_launches(); the plain
 # versions never count. The tensor-core forms count per instantiation of
-# density_tc_kernel<rd2, sum> and project_tc_kernel<proj, sum>.
+# density_tc_kernel<rd2, sum> and project_tc_kernel<proj, sum>; "finalize"
+# is ops/collide.finalize's kernel (csrc/pbf_finalize.cu).
 LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0,
             "density_tc_rd2": 0, "density_tc_sum": 0, "density_tc_rd2_sum": 0,
             "project_tc_proj": 0, "project_tc_sum": 0,
-            "project_tc_proj_sum": 0}
+            "project_tc_proj_sum": 0, "finalize": 0}
 
 # (own rows x candidates) pair elements per batch of the plain versions: a
 # batch is a run of consecutive chunks padded to its longest one
@@ -111,6 +112,19 @@ def captured_launches():
         yield _captured
     finally:
         _captured = outer
+
+
+def count_launch(name: str, what: str) -> None:
+    """Count one launch of the kernel `what` under LAUNCHES[name], or into
+    the capture's dict while a stream captures (captured_launches)."""
+    counts = LAUNCHES
+    if torch.cuda.is_current_stream_capturing():
+        if _captured is None:
+            raise RuntimeError(f"{what} captured into a CUDA graph outside "
+                               "captured_launches(): its replays would go "
+                               "uncounted")
+        counts = _captured
+    counts[name] += 1
 
 
 def add_replays(captured: dict, replays: int) -> None:
@@ -728,14 +742,7 @@ def _launch(name: str, fn_name: str, cfg: SimConfig, p4: torch.Tensor,
         scratch.partials.data_ptr(), scratch.counters.data_ptr(), n,
         plan.ranges.shape[0], cfg.geom.own, *consts, stream)
     kernels.check(code, fn_name)
-    counts = LAUNCHES
-    if torch.cuda.is_current_stream_capturing():
-        if _captured is None:
-            raise RuntimeError(f"{fn_name} captured into a CUDA graph outside "
-                               "captured_launches(): its replays would go "
-                               "uncounted")
-        counts = _captured
-    counts[name] += 1
+    count_launch(name, fn_name)
     return out
 
 

@@ -53,6 +53,10 @@ SIGNATURES = {
                           _F, _F, _F, _F, _F, _F, _F, _P),
     "launch_project_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _P),
+    # (p, p_stride, last, last_stride, x, v, nonfinite, n, inv_dt, wall,
+    #  keep, damp, strict, stream): csrc/pbf_finalize.cu
+    "launch_finalize": (_P, _I, _P, _I, _P, _P, _P, _I, _F, _F, _F, _F, _I,
+                        _P),
 }
 
 
@@ -113,7 +117,8 @@ def ptxas_registers(log: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             m = re.search(r"(window_kernel|density_tc_kernel|"
-                          r"project_tc_kernel)I(.*?)EEv", entry.group(1))
+                          r"project_tc_kernel|finalize_kernel)I(.*?)EEv",
+                          entry.group(1))
             name = (f"{m.group(1)}<"
                     + ",".join(re.findall(r"(?:Lb|Li|E)(\d+)E", m.group(2)))
                     + ">") if m else entry.group(1)

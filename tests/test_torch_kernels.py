@@ -191,7 +191,8 @@ def test_signatures_match_the_c_launchers():
     """Every launcher's ctypes argtypes follow its C declaration, argument
     for argument, so a pointer is never cut to an int; the FP32 launchers
     take the evaluated-pair counter, a pointer, just before the stream,
-    and the tensor-core ones end on their last float constant."""
+    the tensor-core ones end on their last float constant, and finalize's
+    on its last float constant and the strict switch."""
     import ctypes
 
     from pdb_sph_tpu_torch.utils import cuda_build
@@ -199,7 +200,9 @@ def test_signatures_match_the_c_launchers():
     assert _c_launchers() == cuda_build.SIGNATURES
     for name, args in cuda_build.SIGNATURES.items():
         tail = args[-3:]
-        if name.endswith("_tc"):
+        if name == "launch_finalize":
+            assert tail == (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+        elif name.endswith("_tc"):
             assert tail[1:] == (ctypes.c_float, ctypes.c_void_p), name
         else:
             assert tail == (ctypes.c_float, ctypes.c_void_p,

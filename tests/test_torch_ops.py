@@ -7,13 +7,17 @@ import numpy as np
 import pytest
 import torch
 
+import pdb_sph_tpu as jpbf
 from pdb_sph_tpu import default_config
+from pdb_sph_tpu.core import step as jstep
 from pdb_sph_tpu.ops import collide as jcollide
 from pdb_sph_tpu.ops import hashgrid as jhash
 from pdb_sph_tpu.ops import integrate as jintegrate
 from pdb_sph_tpu.ops import smoothing as jsmooth
 from pdb_sph_tpu_torch import interop
-from pdb_sph_tpu_torch.ops import collide, hashgrid, integrate, smoothing
+from pdb_sph_tpu_torch.core import step as tstep
+from pdb_sph_tpu_torch.ops import (collide, cuda_pbf, hashgrid, integrate,
+                                   smoothing)
 
 torch.set_num_threads(1)
 
@@ -72,14 +76,10 @@ def test_predict_matches_jax():
     _close(tv, jv)
 
 
-@pytest.mark.parametrize("strict", [False, True])
-def test_finalize_matches_jax_past_every_wall(strict):
-    """Particles past each of the six walls, moving out of and into the
-    box, through the ordered wall responses."""
-    jcfg = dataclasses.replace(JCFG, strict_reference_collide=strict)
-    tcfg = dataclasses.replace(TCFG, strict_reference_collide=strict)
+def _past_every_wall(n: int = 1024):
+    """(p, last): rows past each of the six walls, moving out of and into
+    the box, and v == 0 rows."""
     rng = np.random.default_rng(2)
-    n = 1024
     last = (rng.random((n, 3)) * 2.0).astype(np.float32)
     p = (rng.random((n, 3)) * 3.0 - 0.5).astype(np.float32)
     for k, (axis, upper) in enumerate(jcollide._WALL_ORDER):
@@ -88,6 +88,20 @@ def test_finalize_matches_jax_past_every_wall(strict):
         last[rows, axis] = np.where(np.arange(64) % 2, 1.0,
                                     2.4 if upper else -0.4)
     last[-4:] = p[-4:]  # v == 0 rows
+    return p, last
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_finalize_matches_jax_past_every_wall(strict):
+    """Particles past each of the six walls, moving out of and into the
+    box, through the ordered wall responses."""
+    jcfg = dataclasses.replace(JCFG, strict_reference_collide=strict)
+    tcfg = dataclasses.replace(TCFG, strict_reference_collide=strict)
+    p, last = _past_every_wall()
     tx, tv = collide.finalize(tcfg, torch.from_numpy(p),
                               torch.from_numpy(last))
     jx, jv = jcollide.finalize(jcfg, jnp.asarray(p), jnp.asarray(last))
@@ -95,6 +109,99 @@ def test_finalize_matches_jax_past_every_wall(strict):
     _close(tv, jv)
     if not strict:
         assert ((tx >= 0) & (tx <= tcfg.wall)).all()
+
+
+@pytest.mark.parametrize("layout", ["rows", "solve_buffer"])
+@pytest.mark.parametrize("nonfinite_rows", [False, True],
+                         ids=["finite", "nan_inf"])
+@pytest.mark.parametrize("strict", [False, True])
+def test_finalize_on_the_cpu_is_the_plain_chain(strict, nonfinite_rows,
+                                                layout):
+    """A CPU tensor takes the plain chain, bit for bit, launches nothing
+    and carries no kernel flag, and matches JAX; `p` as contiguous rows or
+    as the (n, 3) view of the solve's (n_pad, 4) buffer; NaN and inf in
+    p, in last, and a NaN velocity at a wall."""
+    jcfg = dataclasses.replace(JCFG, strict_reference_collide=strict)
+    tcfg = dataclasses.replace(TCFG, strict_reference_collide=strict)
+    p, last = _past_every_wall()
+    if nonfinite_rows:
+        p[400, 1], p[401, 0], p[402, 2] = np.nan, np.inf, -np.inf
+        last[403, 0], last[404, 2] = np.nan, -np.inf
+        p[405, 0], last[405, 0] = -0.2, np.nan  # NaN velocity at x = 0
+    tp = torch.from_numpy(p)
+    if layout == "solve_buffer":
+        buf = torch.zeros((p.shape[0] + 64, 4), dtype=torch.float32)
+        buf[:p.shape[0], :3] = tp
+        tp = buf[:p.shape[0], :3]
+    before = dict(cuda_pbf.LAUNCHES)
+    got = collide.finalize(tcfg, tp, torch.from_numpy(last))
+    assert cuda_pbf.LAUNCHES == before
+    assert not isinstance(got, collide.Finalized)
+    want = collide.finalize_ref(tcfg, torch.from_numpy(p),
+                                torch.from_numpy(last))
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    jx, jv = jcollide.finalize(jcfg, jnp.asarray(p), jnp.asarray(last))
+    _close(got[0], jx)
+    _close(got[1], jv)
+    if nonfinite_rows:
+        # bounced into NaN in the strict mode, clamped into the box else
+        assert bool(torch.isnan(got[0][405]).all()) == strict
+
+
+@pytest.mark.parametrize("case", ["rows", "solve_buffer", "wide_rows",
+                                  "columns_apart", "float64", "short"])
+def test_the_kernel_wrapper_takes_rows_of_any_stride(case):
+    """`_rows` gives the row stride of (n, 3) float32 rows with adjacent
+    columns, which the kernel reads without a copy, and refuses the
+    rest."""
+    n = 8
+    buf = torch.zeros((n, 6), dtype=torch.float32)
+    t = {"rows": buf[:, :3].contiguous(), "solve_buffer": buf[:, :4][:, :3],
+         "wide_rows": buf[:, 1:4], "columns_apart": buf[:, ::2],
+         "float64": buf[:, :3].double(), "short": buf[:n - 1, :3]}[case]
+    if case in ("rows", "solve_buffer", "wide_rows"):
+        assert collide._rows("p", t, n, t.device) == t.stride(0)
+    else:
+        with pytest.raises(ValueError, match="adjacent columns"):
+            collide._rows("p", t, n, t.device)
+
+
+NONFINITE_CASES = {
+    # (strict_reference_collide, the state's coordinate made non-finite)
+    "all_finite": (False, None),
+    "nan_in_x": (False, ("x", 7, 1, np.nan)),
+    "inf_in_v": (False, ("v", 7, 0, np.inf)),
+    # -inf - -inf: a NaN velocity on a particle past the wall x = 0, which
+    # the strict mode bounces
+    "strict_nan_velocity_at_a_wall": (True, ("x", 7, 0, -np.inf)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NONFINITE_CASES))
+def test_the_step_nonfinite_stat_keeps_its_meaning(case):
+    """step_fn's stats[2] on the CPU is the JAX step's stats[2] from the
+    same planted state, and 1 exactly when the step's x or v holds a
+    non-finite value. (On a card the kernel's flag is held to this plain
+    check by chip_smoke.py's finalize phase.)"""
+    strict, plant = NONFINITE_CASES[case]
+    jcfg = dataclasses.replace(JCFG, strict_reference_collide=strict)
+    tcfg = dataclasses.replace(TCFG, strict_reference_collide=strict)
+    js = jpbf.spawn(jcfg, "dam_break", seed=0)
+    arrays = {"x": np.array(js.x), "v": np.array(js.v)}
+    if plant is not None:
+        name, row, axis, value = plant
+        arrays[name][row, axis] = value
+    js = js._replace(x=jnp.asarray(arrays["x"]), v=jnp.asarray(arrays["v"]))
+    state = interop.state_from_numpy(arrays["x"], arrays["v"], js.ids,
+                                     js.step, "cpu")
+    out, stats = tstep.step_fn(tcfg, "window", state, with_stats=True)
+    _, jstats = jstep.step_fn(jcfg, "cell", js, with_stats=True)
+    finite = bool(torch.isfinite(out.x).all() & torch.isfinite(out.v).all())
+    assert finite == (plant is None)
+    assert stats.dtype == torch.int32
+    assert stats.tolist() == [0, 0, int(not finite)]
+    assert int(stats[2]) == int(np.asarray(jstats)[2])
 
 
 def test_cell_ids_match_jax_exactly():
