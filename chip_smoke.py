@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA card.
+"""Check the PyTorch port on one NVIDIA card: its kernels, paths and runner.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py
+
+This is the card's correctness check, not a benchmark: the end-to-end and
+per-layer numbers of the configurations the benchmark has cells for
+(BENCHMARK.json) are pbfbench's, and this script times none of them. It
+prints one rate line for each configuration that no cell measures, each
+kernel's ms against the pair work pbfbench/work.py counts, and peak memory.
 
 Phases, each printing its own line(s); any failure raises and the script
 exits non-zero:
@@ -22,50 +28,47 @@ exits non-zero:
                (strict) a NaN velocity at a wall; the kernel's and the
                chain's ms beside the kernel's byte bound;
   3. kernels — each kernel against its plain torch version on the same
-               inputs, at the main path's shape, with errors, times, and
-               each kernel's bound and share of it: the FP32 kernels
-               (csrc/pbf_window.cu) and the six tensor-core instantiations
-               (csrc/pbf_tc.cu) on the 80k dam break mid-collapse (step
-               60) and settled (step 480, the heaviest own-chunks), each
-               launched twice for bitwise-equal output, the scratch's
-               counters back at 0; then the same checks at own 32, 128
-               and 256 (step 60) with a 40-step rollout at each, and on
-               restricted plans, as rank 0 of two sees them (density
-               forms on own keys plus one ring, project forms on own
-               keys), the masked chunks' rows as JAX's rule writes them;
+               inputs, at the main path's shape, with errors and times: the
+               FP32 kernels (csrc/pbf_window.cu) and the six tensor-core
+               instantiations (csrc/pbf_tc.cu) on the 80k dam break
+               mid-collapse (step 60) and settled (step 480, the heaviest
+               own-chunks), each launched twice for bitwise-equal output,
+               the scratch's counters back at 0, each lambda and project
+               form beside the least time of work.py's flops for the pairs
+               within h; then the same checks at own 32, 128 and 256 (step
+               60) with a 40-step rollout at each, and on restricted plans,
+               as rank 0 of two sees them (density forms on own keys plus
+               one ring, project forms on own keys), the masked chunks'
+               rows as JAX's rule writes them;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
                settle chunk (the Rollout replays its CUDA graph: the launch
                counts show the replays ran the geometry's two kernels
-               solver_iters times a step and nothing else): steps/s, stats,
-               launch counts, stage breakdown of the eager step;
-               then the same with every tensor-core switch on, and two
-               short rollouts with {mxu_sum} and {mxu_rd2, mxu_proj}, so
-               that each tensor-core instantiation runs on a path; then the
-               graph against the eager loop in both geometries ([graph]):
-               240 graph steps bitwise 240 eager Stepper.step calls from
-               one settled state, 20 eager steps and 20 graph steps under
-               torch.cuda.set_sync_debug_mode("error"), eager and graph
-               steps/s in turns (eager, graph, graph, eager), the capture's
-               time, and 40 steps of each profiled (device busy share,
-               device ms a step); then the
-               sharded paths (parallel/sharded.py): one rank (its fast
-               path) bitwise against the Stepper for 3 steps, then its
-               graph rollout bitwise the eager ShardedStepper loop for 240
-               more, with both rates; two gloo ranks sharing the card (NCCL
-               refuses two ranks on one card), against the Stepper at step 3, by the
-               population discriminator at step 23 and by their density
-               diagnostics at steps 3, 23 and 243; and the cell backend at 80k
-               against the window backend, its one-rank sharded rollout (a
-               graph) bitwise the eager loop, then on a table that
-               overflows (the runner, whose cell rollout is a graph,
-               exits 2); and the single-device cell and dense rollouts as
-               CUDA graphs ([backends]): the 80k cell rollout on that
-               table bitwise its eager loop over 10 steps from the spawn,
-               its graph and eager steps/s and device ms a step beside the
-               window backend's; the cell backend at 2048 on a table sized
-               from the window state at step 240, 240 steps bitwise and 20
-               under the sync-debug mode; dense at 2048, 40 steps bitwise;
+               solver_iters times a step, finalize once and nothing else):
+               stats, launch counts; then the same with every tensor-core
+               switch on (with its steps/s), and two short rollouts with
+               {mxu_sum} and {mxu_rd2, mxu_proj}, so that each tensor-core
+               instantiation runs on a path; then the graph against the
+               eager loop in both geometries ([graph]): 240 graph steps
+               bitwise 240 eager Stepper.step calls from one settled state,
+               20 eager steps and 20 graph steps under
+               torch.cuda.set_sync_debug_mode("error"); then the sharded
+               paths (parallel/sharded.py): one rank (its fast path) bitwise
+               against the Stepper for 3 steps, then its graph rollout
+               bitwise the eager ShardedStepper loop for 240 more, with the
+               graph's rate; two gloo ranks sharing the card (NCCL refuses
+               two ranks on one card), against the Stepper at step 3, by
+               the population discriminator at step 23 and by their density
+               diagnostics at steps 3, 23 and 243; and the cell backend at
+               80k against the window backend, its one-rank sharded rollout
+               (a graph) bitwise the eager loop, then on a table that
+               overflows (the runner, whose cell rollout is a graph, exits
+               2); and the single-device cell and dense rollouts as CUDA
+               graphs ([backends]), each bitwise its eager loop, with its
+               graph's rate: the 80k cell rollout on that table over 10
+               steps from the spawn; the cell backend at 2048 on a table
+               sized from the window state at step 240, 240 steps, and 20
+               under the sync-debug mode; dense at 2048, 40 steps;
   6. settle  — the settle gate (core/settle.py): the 8k dam break run 2000
                steps must come to rest (mean dense rho within 5 % of rho0,
                max speed < 0.5, nothing escaped, stats [0, 0, 0], no NaN),
@@ -77,8 +80,9 @@ exits non-zero:
                checkpoint; a resume of it that ends on a partial chunk; the
                80k blowup; and a short 80k dam break with
                PBF_MXU_SUM/RD2/PROJ=1 in the environment; each run captures
-               one graph and allocates one pair-kernel scratch, its
-               diagnostics included;
+               one graph, allocates one pair-kernel scratch, its
+               diagnostics included, and launches the kernels its geometry
+               does;
   8. scale   — the JAX package's large single-device rows
                (benchmarks/bench_matrix.py:96-143), each in a box scaled to
                the reference's number density ([scale] lines): the kernels
@@ -86,16 +90,16 @@ exits non-zero:
                against their plain versions, the pairs within h by the
                FP32 and the tensor-core rd2, and rho of 4096 sampled
                particles against a brute-force sum over all 1M, within
-               DENSE_RHO_RTOL); the 1M dam break
-               rolled out 240 graph steps after a settle chunk, in the
-               default geometry and with every switch on (mean rho within
-               1 % of the default's), and the 2M dam break (wall 5.85):
-               steps/s, device ms a step (profiled), peak memory, the
-               capture, stats, box, escapes, the final diagnostics; the 1M
-               blowup through 1040 steps, diagnostics every 80; the runner
-               at 1M as the README's command, frames, GIF and checkpoint,
-               then its resume to step 100; and the one-rank sharded fast
-               path at 1M.
+               DENSE_RHO_RTOL); the 1M dam break rolled out 240 graph steps
+               after a settle chunk, in the default geometry and with every
+               switch on (mean rho within 1 % of the default's), and the 2M
+               dam break (wall 5.85): peak memory, stats, box, escapes, the
+               final diagnostics, and the rate of each but the 1M default
+               geometry (the cell dam1m.rollout); the 1M blowup through
+               1040 steps, diagnostics every 80; the runner at 1M as the
+               README's command, frames, GIF and checkpoint, then its
+               resume to step 100; and the one-rank sharded fast path at
+               1M.
 
 On a machine with four cards, `python3 chip_smoke.py --ranks 4` runs
 phases 1-2, then only the [nccl] phases: the sharded rollout on NCCL ranks,
@@ -107,23 +111,21 @@ of that row; for D = 2 and D = 4, through launch.rollout_ranks: 3 steps
 against the single-card Stepper, the population at step 23 and the mean
 density at steps 3, 23 and 243; then 240 graph steps bitwise 240 eager
 ShardedStepper steps; 20 graph steps under set_sync_debug_mode("error");
-eager and graph steps/s in turns; 20 steps of each profiled on every rank
-behind a barrier (busy share, device ms a step, the NCCL kernels' share);
-the line of bench_multichip.py's fields, also for D = 1.
-At D = 4 also: the 2M dam break (wall 5.85), every tensor-core switch,
-the cell backend at 80k against the window backend, and the runner on four
-cards with frames, GIF and checkpoint and the JAX package's tier flags
-(--retier-at 240 --retier-maxlanes 49152 --retier-geom cc_d=512), then its
-resume past the re-tier, a forced ghost overflow on the compact tier (it
-falls back) and a forced migration overflow (rc 2); each rank of the
-runner captures one graph and allocates one pair-kernel scratch a tier.
-[tiers], the JAX package's two-tier flow (parallel/sharded.py:244-292), at
-D = 2 and 4: rollout_ranks re-tiers at step 243 and runs 240 more steps on
-the compact tier; from the step-243 state each tier runs 240 graph steps
-(slots, device ms split, busy share, peak memory, balance, stats), the
-compact tier's graph bitwise its eager loop, both tiers in lockstep
-(bitwise while their slab bounds agree), rates in turns; at D = 4 the nine
-forms on rank 1's compact-tier local set and plans against their plain
+the graph's steps/s and the line of bench_multichip.py's fields, also for
+D = 1. At D = 4 also: the 2M dam break (wall 5.85), every tensor-core
+switch, the cell backend at 80k against the window backend, and the
+runner on four cards with frames, GIF and checkpoint and the JAX package's
+tier flags (--retier-at 240 --retier-maxlanes 49152 --retier-geom
+cc_d=512), then its resume past the re-tier, a forced ghost overflow on
+the compact tier (it falls back) and a forced migration overflow (rc 2);
+each rank of the runner captures one graph and allocates one pair-kernel
+scratch a tier. [tiers], the JAX package's two-tier flow
+(parallel/sharded.py:244-292), at D = 2 and 4: rollout_ranks re-tiers at
+step 243 and runs 240 more steps on the compact tier; from the step-243
+state each tier runs 240 graph steps (slots, peak memory, balance,
+stats), the compact tier's graph bitwise its eager loop, both tiers in
+lockstep (bitwise while their slab bounds agree); at D = 4 the nine forms
+on rank 1's compact-tier local set and plans against their plain
 versions. Last, after the runner, [soak], tests/test_sharded_soak.py's
 invariants (parallel/soak.py) on the cards at D = 4 after every chunk
 (active counts sum to n, no overflow, no NaN, every rank's bounds row the
@@ -139,10 +141,12 @@ last state against their plain versions. The mode ends with its own
 kernels line.
 
 Every path (phases 5, 6 and 7's runs, the sharded rollouts, phase 8's
-rollouts and runs) is driven with the kernel launch counts set to 0 just before it and read just after;
-the two ranks count in their own processes and report their counts. A
-graph's launches count once per replay; the eager warm-up step before its
-capture launches for real and counts too (WARMUP_STEPS).
+rollouts and runs) is driven with the kernel launch counts set to 0 just
+before it and read just after, and held to what its geometry launches in
+that many steps (_launches); the two ranks count in their own processes
+and report their counts. A graph's launches count once per replay; the
+eager warm-up step before its capture launches for real and counts too
+(WARMUP_STEPS).
 
 The line before the last is a JSON object with each kernel's launches
 (`launches_from` names the phases they were counted in: the FP32 solve
@@ -182,8 +186,11 @@ N_ORACLE = 2048
 ROLLOUT_STEPS = 240
 # the eager step a graph rollout's first call runs before its capture
 WARMUP_STEPS = 1
-# [graph]: steps under the sync-debug mode, steps profiled in each mode
-SYNC_STEPS, PROFILE_STEPS = 20, 40
+# the Jacobi iterations of a step: config.SimConfig.solver_iters in every
+# configuration here, each a launch of the density and the project kernel
+SOLVER_ITERS = 3
+# [graph]: steps under the sync-debug mode
+SYNC_STEPS = 20
 # the one-switch geometries' rollouts: each runs its two instantiations
 SHORT_STEPS = 40
 REPS = 20
@@ -221,10 +228,6 @@ CLI_STEPS, CLI_RESUME_STEPS, CLI_EVERY, CLI_RENDER = 240, 50, 20, 120
 # window vs dense over 3 steps (tests/test_pallas.py:45-55)
 ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-5
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): FP32
-# outside the tensor cores, dense bf16 on the tensor cores, HBM3
-PEAK_FP32, PEAK_BF16_MMA, PEAK_BYTES = 67e12, 989e12, 3.35e12
-
 CU_SOURCE = "pdb_sph_tpu_torch/csrc/pbf_window.cu"
 TC_SOURCE = "pdb_sph_tpu_torch/csrc/pbf_tc.cu"
 PALLAS = "pdb_sph_tpu/ops/pallas_pbf.py"
@@ -249,31 +252,6 @@ KERNELS = {
     "project_tc_proj_sum": ("project_tc_kernel<kProjMma, kSumMma>",
                             TC_SOURCE, f"{PALLAS}:525"),
 }
-# flops per (own row, candidate) pair, an FMA counted as 2, read from the
-# pair bodies, each as (on the CUDA cores in float32, on the tensor cores):
-# first what every candidate costs, then what only a pair within h adds.
-# The clamp of rd2 to h^2 zeroes every term of a pair beyond h, so the
-# function needs no more of such a pair than its distance. FP32: deltas 3
-# and rd2 5 for every pair; within h, lambda t 1, u 2, t2 u2 2, the two
-# sums 5; rho t^3 and its sum 4; project u 2, u^2 1, lambda sum 1, s 1,
-# three FMAs 6. The rd2 mma forms take rd2 as (|o|^2 - 2 dot) + |c|^2 (3
-# flops on the CUDA cores in place of 8) and one m16n8k16 per 16 x 8 pairs
-# (32 flops a pair); proj also splits s (1 flop) and takes delta-p in two
-# more mmas per 16 x 16 pairs in place of three FMAs. The sum forms still
-# add each term element-wise on the CUDA cores; their row-sum mma runs
-# once per row.
-PAIR_FLOPS = {
-    "density_lambda": ((8, 0), (10, 0)), "density_rho": ((8, 0), (4, 0)),
-    "project": ((8, 0), (11, 0)),
-    "density_tc_rd2": ((3, 32), (10, 0)), "density_tc_sum": ((8, 0), (10, 0)),
-    "density_tc_rd2_sum": ((3, 32), (10, 0)),
-    "project_tc_proj": ((3, 32), (7, 32)), "project_tc_sum": ((8, 0), (11, 0)),
-    "project_tc_proj_sum": ((3, 32), (7, 32)),
-}
-# the pair kernels' names as a profiler trace gives them
-PAIR_KERNEL_NAMES = ("window_kernel", "density_tc_kernel", "project_tc_kernel")
-SOLVE_KERNELS = ("density_lambda", "project")
-TC_SOLVE_KERNELS = ("density_tc_rd2_sum", "project_tc_proj_sum")
 # wrapper counter of each tensor-core form -> the geometry's switches
 TC_FORMS = {
     "density_tc_rd2": dict(mxu_rd2=True),
@@ -321,11 +299,11 @@ RANKS_TIMEOUT_S = 600
 # "Parity method"); its table sized from the spawn with this slack
 CELL_STEPS, CELL_SLACK = 3, 1.5
 # [backends]: the 80k cell rollout as a graph on that table against the
-# eager loop, then its rates in turns and its profile; a cell step there
-# took 1477 device ms on an NVIDIA H100 80GB HBM3 at 700 W (plain torch,
-# ~38k kernels over 1504 rows x 27 x 256^2 pairs a pass), so each run is
-# short. The dense rollout at N_ORACLE as a graph
-CELL_GRAPH_STEPS, CELL_RATE_STEPS, CELL_PROFILE_STEPS = 10, 2, 1
+# eager loop; a cell step there took 1477 device ms on an NVIDIA H100 80GB
+# HBM3 at 700 W (plain torch, ~38k kernels over 1504 rows x 27 x 256^2
+# pairs a pass), so the run is short. The dense rollout at N_ORACLE as a
+# graph
+CELL_GRAPH_STEPS = 10
 DENSE_GRAPH_STEPS = 40
 # [scale]: the JAX package's large single-device rows
 # (benchmarks/bench_matrix.py:96-143), each in a box scaled to keep the
@@ -334,9 +312,8 @@ DENSE_GRAPH_STEPS = 40
 SCALE_ROWS = {"dam1m": ("dam_break", 1_000_000, 4.64),
               "dam2m": ("dam_break", 2_000_000, 5.85),
               "blowup1m": ("blowup", 1_000_000, 4.64)}
-# a dam row: one settle chunk, then a timed rollout, then steps profiled for
-# the device ms a step
-SCALE_SETTLE, SCALE_STEPS, SCALE_PROFILE_STEPS = 240, 240, 20
+# a dam row: one settle chunk, then a rollout
+SCALE_SETTLE, SCALE_STEPS = 240, 240
 # the JAX rows' in-box test (bench_matrix.py:81): [-0.25, wall + 0.25]^3
 BOX_MARGIN = 0.25
 # the blowup row: JAX settles it 1000 steps, then times a 20-step chunk
@@ -359,9 +336,9 @@ NCCL_ROWS = {"dam1m": (1_000_000, 4.64), "dam2m": (2_000_000, 5.85)}
 NCCL_TABLE = dict(grid_width=40, max_occupied_cells=4096, cell_capacity=256)
 NCCL_DS = (2, 4)
 # after the correctness chunks (RANK_CHUNKS), from their last step: graph
-# vs eager over NCCL_STEPS steps each, the rates in turns, NCCL_SYNC_STEPS
-# graph steps under the sync-debug mode
-NCCL_STEPS, NCCL_SYNC_STEPS, NCCL_PROFILE_STEPS = 240, 20, 20
+# vs eager over NCCL_STEPS steps each, NCCL_SYNC_STEPS graph steps under the
+# sync-debug mode
+NCCL_STEPS, NCCL_SYNC_STEPS = 240, 20
 # the restricted plans at the row's size: this rank of D = 4, whose band has
 # ghosts on both sides; and the rank whose compact-tier local set [tiers]
 # checks the nine forms on
@@ -432,6 +409,46 @@ def phase_build() -> None:
           f"(load total {total:.2f} s); ptxas (template arguments: pass or "
           f"switches, rows per lane or own): "
           + "; ".join(ptxas_registers(kl.log)))
+
+
+def _peaks() -> dict | None:
+    """The card's published peaks from the benchmark's table
+    (pbfbench/peaks.json), or None for a card it does not list."""
+    from pbfbench import work
+
+    return work.peaks(torch.cuda.get_device_name(0))
+
+
+def _least_ms(name: str, pairs: int | None) -> float | None:
+    """The least ms of one launch of kernel `name` on data with `pairs`
+    ordered pairs within h (pbfbench/work.py's count): the flops work.py
+    charges those pairs in the pass the kernel computes, at the card's FP32
+    peak. None for K1 rho's diagnostic density, which work.py does not
+    count, for a plan whose pairs it does not count (restricted plans, a
+    rank's local set: `pairs` None) and for a card without a peak."""
+    from pbfbench import work
+
+    peak = _peaks()
+    if name == "density_rho" or pairs is None or peak is None:
+        return None
+    flops = (work.LAMBDA_FLOPS_PER_PAIR if name.startswith("density")
+             else work.PROJECT_FLOPS_PER_PAIR)
+    return 1e3 * pairs * flops / peak["fp32_flop_per_s"]
+
+
+def _least_txt(bound: float | None, pairs: int | None, ms: float) -> str:
+    if bound is None:
+        return ""
+    return (f"; bound {1e3 * bound:.2f} us for {pairs} pairs within h "
+            f"(pbfbench/work.py), {100 * bound / ms:.1f} % of it")
+
+
+def _pairs(cfg, p4, n: int) -> int:
+    """The ordered pairs within h, self included, of the first n rows:
+    pbfbench/work.py's census, the pair work of a pass on these rows."""
+    from pbfbench import work
+
+    return work.pairs_within(p4[:n, :3], cfg.h)
 
 
 def _finalize_rows(device, n: int = 1024, nonfinite: bool = True):
@@ -540,6 +557,7 @@ def phase_finalize(device) -> dict:
           f"the chain and its flag the old check's: {not bad}")
 
     times, seen, real = {}, [], core_step.finalize
+    peak = _peaks()
 
     def record(c, p, last):
         seen.append((p, last))
@@ -570,17 +588,21 @@ def phase_finalize(device) -> dict:
             kernel = _graph_ms(lambda: collide.finalize(cfg, p, last))
             chain = _graph_ms(lambda: collide.nonfinite(
                 *collide.finalize_ref(cfg, p, last)))
-            bound = 52 * n / PEAK_BYTES * 1e3
+            bound = (52 * n / peak["hbm_byte_per_s"] * 1e3 if peak
+                     else None)
             times[(n, step)] = (kernel, chain, bound)
+            bound_txt = ("" if bound is None else
+                         f"; bound 52 B x n / "
+                         f"{peak['hbm_byte_per_s'] / 1e12:g} TB/s = "
+                         f"{bound * 1e3:.2f} us ({100 * bound / kernel:.1f} "
+                         f"% of it)")
             print(f"[finalize] dam n={n} step {step}: the step's own inputs "
                   f"(stride-4 rows and a contiguous copy), both modes, "
                   f"bitwise the chain: "
                   f"{not any(f'n {n} step {step}' in b for b in bad)}; "
                   f"kernel {kernel:.4f} ms a call (its flag's memset "
                   f"included) against the chain and finite check {chain:.4f} "
-                  f"ms ({chain / kernel:.1f}x); bound 52 B x n / "
-                  f"{PEAK_BYTES / 1e12:g} TB/s = {bound * 1e3:.2f} us "
-                  f"({100 * bound / kernel:.1f} % of it)")
+                  f"ms ({chain / kernel:.1f}x){bound_txt}")
         del stepper, rollout, state, p, last
         torch.cuda.empty_cache()
 
@@ -633,28 +655,13 @@ def _candidates(plan) -> tuple[float, int]:
     return float(lens.float().mean()), int(lens.max())
 
 
-def _near_pairs(cfg, p4, plan, n: int) -> int:
-    """The (real own row, candidate) pairs of this plan that lie within h:
-    those whose terms the clamp does not zero."""
-    from pdb_sph_tpu_torch.ops import cuda_pbf
-
-    h2 = torch.tensor(float(cfg.h2), dtype=torch.float32, device=p4.device)
-    near = 0
-    for row0, mine, _, rd2, mask, _ in cuda_pbf._pair_blocks(cfg, p4, plan,
-                                                             n):
-        rows = row0 + torch.arange(mine.shape[0] * mine.shape[1],
-                                   device=p4.device).view(mine.shape[:2])
-        near += int(((rd2 < h2) & mask & (rows < n)[..., None]).sum())
-    return near
-
-
-def _rd2_census(cfg, p4, plan, n: int, head: str) -> int:
+def _rd2_census(cfg, p4, plan, n: int, head: str) -> None:
     """The (real own row, candidate) pairs of `plan` within h by the FP32
     distance and by the tensor-core forms' rd2, (|o|^2 - 2 o.c) + |c|^2
     with the bf16 split dot: taken from absolute coordinates, its error
     grows with |p|^2, that is with the box. Prints both counts, the pairs
     only one of them counts and the two rd2's largest and mean difference
-    on the pairs both count. Returns the FP32 count (the bound's `near`)."""
+    on the pairs both count."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
 
     h2 = torch.tensor(float(cfg.h2), dtype=torch.float32, device=p4.device)
@@ -684,7 +691,6 @@ def _rd2_census(cfg, p4, plan, n: int, head: str) -> int:
           f" % of the FP32 pairs); |rd2 difference| on the pairs both count "
           f"max {float(diff_max):.3e}, mean {float(diff_sum) / both:.3e} "
           f"(h^2 = {cfg.h2:g})")
-    return fp32
 
 
 def _dense_oracle(cfg, p4, plan, n: int, head: str) -> float:
@@ -724,29 +730,6 @@ def _dense_oracle(cfg, p4, plan, n: int, head: str) -> float:
     return worst
 
 
-def _bound(name: str, plan, n: int, own: int,
-           near: int) -> tuple[float, str, int]:
-    """(bound ms, "operations" or "bytes", pairs) of one launch of kernel
-    `name` on this plan: the least time the card could take, the larger of
-    the pair flops over the published peak of their type and the bytes
-    (positions read once, the n rows written once, the plan read once)
-    over the memory rate. Pairs are those this data needs: each real own
-    row against its chunk's candidates, each costing its distance, and of
-    them the `near` pairs within h the rest of the pair body."""
-    lens = (plan.ranges[..., 1] - plan.ranges[..., 0]).sum(dim=1).double()
-    rows = (n - own * torch.arange(lens.numel(), device=lens.device,
-                                   dtype=torch.float64)).clamp(0, own)
-    pairs = int((rows * lens).sum())
-    (fp32, mma), (fp32_near, mma_near) = PAIR_FLOPS[name]
-    ops_s = max((pairs * fp32 + near * fp32_near) / PEAK_FP32,
-                (pairs * mma + near * mma_near) / PEAK_BF16_MMA)
-    plan_bytes = sum(t.numel() * t.element_size() for t in (
-        plan.ranges, plan.seg_prefix, plan.seg_len))
-    bytes_s = (16 * own * lens.numel() + 16 * n + plan_bytes) / PEAK_BYTES
-    return (1e3 * max(ops_s, bytes_s),
-            "operations" if ops_s >= bytes_s else "bytes", pairs)
-
-
 def _masked_rows(plan, n: int, own: int) -> torch.Tensor:
     """The real rows of the own-chunks a plan gives no candidates: on a
     restricted plan, the masked chunks' rows."""
@@ -779,13 +762,14 @@ def _check_masked(name: str, out: torch.Tensor, src: torch.Tensor, plan,
 def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
                   plan_p=None, reps: int = REPS, tag: str = "",
                   head: str = "[kernels]",
-                  near: int | None = None) -> tuple[dict, torch.Tensor]:
+                  pairs: int | None = None) -> tuple[dict, torch.Tensor]:
     """K1 lambda, K2 and K1 rho against their plain versions on one state:
     errors within the tolerances, two launches bitwise equal, the rows of
-    masked chunks as JAX writes them, times beside their bounds. K1 runs on
-    `plan`, K2 on `plan_p` (default `plan`); `near`, the pairs of `plan`
-    within h, is counted here when None. Returns ({counter: (max|err|, ms,
-    plain ms or None, bound ms, bound by)}, K1's output)."""
+    masked chunks as JAX writes them, times beside their bounds (_least_ms
+    of `pairs`, _pairs of these rows; None where work.py does not count
+    the plan's pairs). K1 runs on `plan`, K2 on `plan_p` (default `plan`).
+    Returns ({counter: (max|err|, ms, plain ms or None, bound ms or None)},
+    K1's output)."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import cuda_ms
 
@@ -848,13 +832,8 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
             "density_rho": float(rho_err.max())}
     mean_c, max_c = _candidates(plan)
     items = int(plan.seg_prefix[-1])
-    if near is None:
-        near = _near_pairs(cfg, p4, plan, n)
-    near_p = near if plan_p is plan else _near_pairs(cfg, p4, plan_p, n)
-    pairs = _bound("density_lambda", plan, n, cfg.geom.own, near)[2]
     print(f"{head}{tag} n={n} after {step} steps; candidates/chunk "
-          f"mean {mean_c:.1f} max {max_c}; {pairs} pairs, {near} within h "
-          f"({100 * near / max(pairs, 1):.2f} %); {items} work items of <= "
+          f"mean {mean_c:.1f} max {max_c}; {items} work items of <= "
           f"{int(plan.seg_len)} candidates; masked rows (lambda, project, "
           f"rho) {masked}, written as JAX's rule has it; "
           f"lambda max|err| {float(lam_err.max()):.3e} max rel "
@@ -868,19 +847,13 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
     for name, (kernel, plain) in runs.items():
         k_ms = cuda_ms(kernel, reps)
         r_ms = cuda_ms(plain, plain_reps) if plain_reps else None
-        kplan, knear = (plan_p, near_p) if name == "project" else (plan, near)
-        bound_ms, bound_by, kpairs = _bound(name, kplan, n, cfg.geom.own,
-                                            knear)
         plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
                      if r_ms is not None else "plain not timed here")
-        every, within = (f[0] for f in PAIR_FLOPS[name])
+        bound = _least_ms(name, pairs)
         print(f"{head}{tag} {KERNELS[name][0]} at step {step}: kernel "
-              f"{k_ms:.4f} ms (median of {reps}, CUDA events), {plain_txt}; "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({kpairs} pairs x "
-              f"{every} + {knear} x {within} flops at "
-              f"{PEAK_FP32 / 1e12:g} TFLOP/s), "
-              f"{100 * bound_ms / k_ms:.1f} % of bound")
-        out[name] = (errs[name], k_ms, r_ms, bound_ms, bound_by)
+              f"{k_ms:.4f} ms (median of {reps}, CUDA events), {plain_txt}"
+              + _least_txt(bound, pairs, k_ms))
+        out[name] = (errs[name], k_ms, r_ms, bound)
     if lam_bad or not pos_max <= POS_ATOL or rho_bad:
         raise AssertionError(f"a kernel disagrees with its plain version at "
                              f"step {step}{tag}")
@@ -892,8 +865,8 @@ def _fp32_kernels(cfg, p4, plan, n: int, step: int, plain_reps: int,
 
 def phase_kernels(device, n: int = N_MAIN) -> tuple[dict, object]:
     """Each kernel against its plain version on the dam break at steps 60
-    and 480. Returns ({counter: (max|err|, ms, plain ms, bound ms, bound
-    by, ms at step 480, bound ms at step 480)}, the state at step 60)."""
+    and 480. Returns ({counter: (max|err|, ms, plain ms, bound ms, ms at
+    step 480, bound ms at step 480)}, the state at step 60)."""
     import pdb_sph_tpu_torch as pbf
 
     cfg = pbf.default_config(n=n)
@@ -906,16 +879,20 @@ def phase_kernels(device, n: int = N_MAIN) -> tuple[dict, object]:
     state = pbf.make_rollout(cfg, "window", SETTLE_STEPS, device=device)(state)
     state60 = state
     p4, plan = _sorted_p4(cfg, state.x)
-    near = _rd2_census(cfg, p4, plan, n, "[kernels]")
+    _rd2_census(cfg, p4, plan, n, "[kernels]")
+    pairs = _pairs(cfg, p4, n)
     mid, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, PLAIN_REPS,
-                             near=near)
+                             pairs=pairs)
     mid.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS,
-                           TC_PLAIN_REPS, near=near))
+                           TC_PLAIN_REPS, pairs=pairs))
     state = pbf.make_rollout(cfg, "window", SETTLED_STEP - SETTLE_STEPS,
                              device=device)(state)
     p4, plan = _sorted_p4(cfg, state.x)
-    settled, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLED_STEP, 0)
-    settled.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLED_STEP, 0))
+    pairs = _pairs(cfg, p4, n)
+    settled, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLED_STEP, 0,
+                                 pairs=pairs)
+    settled.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLED_STEP, 0,
+                               pairs=pairs))
     return {k: (max(v[0], settled[k][0]), *v[1:], settled[k][1],
                 settled[k][3]) for k, v in mid.items()}, state60
 
@@ -968,17 +945,17 @@ def _proj_witness(cfg, src, plan, n: int, got, want, err) -> dict:
 def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
                 plain_reps: int, plan_p=None, reps: int = REPS,
                 tag: str = "", head: str = "[kernels]",
-                near: int | None = None,
+                pairs: int | None = None,
                 witnesses: dict | None = None) -> dict:
     """The six tensor-core instantiations against their plain versions on
     one state; the project forms take the FP32 kernel's lambda, as the FP32
     project kernel does, and run on `plan_p` (default `plan`). Each
     launched twice for bitwise-equal output, the scratch's counters back at
-    0 after, the rows of masked chunks as JAX writes them. `near` as in
+    0 after, the rows of masked chunks as JAX writes them. `pairs` as in
     _fp32_kernels. With `witnesses` (a dict it fills by counter), a project
     form with mxu_proj also gets _proj_witness, which decides its rows
     beyond TC_POS_ATOL. Returns {counter: (max|err|, ms, plain ms or None,
-    bound ms, bound by)}."""
+    bound ms or None)}."""
     import dataclasses
 
     from pdb_sph_tpu_torch.ops import cuda_pbf
@@ -988,10 +965,6 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
     fp32 = {"density": cuda_pbf.density_pass_ref(cfg, p4, plan, n)[:n, 3],
             "project": cuda_pbf.project_pass_ref(cfg, d_fp, plan_p,
                                                  n)[:n, :3]}
-    near = {"density": (_near_pairs(cfg, p4, plan, n) if near is None
-                        else near)}
-    near["project"] = (near["density"] if plan_p is plan
-                       else _near_pairs(cfg, p4, plan_p, n))
     scratch = cuda_pbf.alloc_scratch(cfg, p4.shape[0], p4.device)
     buf = torch.empty_like(p4)
     out, bad = {}, []
@@ -1050,24 +1023,21 @@ def _tc_kernels(cfg, p4, d_fp, plan, n: int, step: int,
                        reps)
         r_ms = (cuda_ms(lambda: plain(tcfg, src, kplan, n, buf), plain_reps)
                 if plain_reps else None)
-        bound_ms, bound_by, _ = _bound(
-            name, kplan, n, cfg.geom.own,
-            near["density" if density else "project"])
         plain_txt = (f"plain {r_ms:.4f} ms (median of {plain_reps})"
                      if r_ms is not None else "plain not timed here")
+        bound = _least_ms(name, pairs)
         print(f"{head}{tag} {KERNELS[name][0]} at step {step}: max|err| "
               f"{float(err.max()):.3e} vs plain (tol {tol}, {n_bad} "
               f"outside); plain form vs plain FP32 form max|diff| "
               f"{form:.3e}; kernel {k_ms:.4f} ms (median of {reps}, CUDA "
-              f"events), {plain_txt}; bound {bound_ms:.4f} ms by "
-              f"{bound_by}, {100 * bound_ms / k_ms:.1f} % of bound; "
+              f"events), {plain_txt}{_least_txt(bound, pairs, k_ms)}; "
               f"checked launches {launches}, two launches bitwise equal "
               f"{equal}, counters after {counters}, masked rows {masked}")
         other = switches.get("mxu_rd2") or switches.get("mxu_proj")
         if n_bad or launches != 2 or not equal or counters \
                 or (other and TC_SEPARATION * float(err.max()) > form):
             bad.append(name)
-        out[name] = (float(err.max()), k_ms, r_ms, bound_ms, bound_by)
+        out[name] = (float(err.max()), k_ms, r_ms, bound)
     if bad:
         raise AssertionError(f"tensor-core kernels disagree with their plain "
                              f"versions, differ between two launches, left "
@@ -1094,50 +1064,22 @@ def phase_oracle(device, n: int = N_ORACLE) -> None:
     torch.testing.assert_close(xw, xd, rtol=ORACLE_RTOL, atol=ORACLE_ATOL)
 
 
-def _stage_breakdown(stepper, state, steps: int = REPS) -> dict:
-    """Median ms of each stage of one step, from CUDA events recorded
-    between the stages; repeated stages (the passes) are summed."""
-    per_step = []
-    for _ in range(steps):
-        marks = [("start", torch.cuda.Event(enable_timing=True))]
-        marks[0][1].record()
-
-        def mark(name, marks=marks):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-
-        state = stepper.step(state, mark=mark)
-        per_step.append(marks)
-    torch.cuda.synchronize()
-    stages: dict[str, list[float]] = {}
-    for marks in per_step:
-        acc: dict[str, float] = {}
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            acc[name] = acc.get(name, 0.0) + a.elapsed_time(b)
-        for name, ms in acc.items():
-            stages.setdefault(name, []).append(ms)
-    return {name: statistics.median(v) for name, v in stages.items()}
-
-
 def phase_main(device, card: str, geom=None, n: int = N_MAIN,
                steps: int = ROLLOUT_STEPS) -> dict:
-    """The rollout in `geom` (None: the default geometry); its launches."""
+    """The rollout in `geom` (None: the default geometry); its launches.
+    Prints its steps/s in every geometry but the default one, whose rate
+    is the cell dam80k.rollout's."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.utils.timing import fence
 
     cfg = pbf.default_config(n=n, **({} if geom is None else {"geom": geom}))
-    expect, idle = _solve_kernels(cfg.geom)
     rollout = pbf.make_rollout(cfg, "window", steps, with_stats=True,
                                device=device)
     scratch = rollout.stepper.scratch
     ptrs = [t.data_ptr() for t in scratch]
     state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
-    t0 = time.perf_counter()
     state, settle_stats = rollout(state)
-    fence(device)
-    settle_s = time.perf_counter() - t0
 
     cuda_pbf.reset_launches()
     fence(device)
@@ -1150,34 +1092,22 @@ def phase_main(device, card: str, geom=None, n: int = N_MAIN,
     x, v = state.x, state.v
     finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
     escaped = int(((x < 0) | (x > cfg.wall)).any(dim=1).sum())
-    print(f"[main] dam_break n={n} {_geom_name(cfg.geom)}: {steps} steps in "
-          f"{secs:.4f} s = "
-          f"{steps / secs:.2f} steps/s = {n * steps / secs:.1f} "
-          f"particle-steps/s on {card} (settle chunk {settle_s:.2f} s); "
-          f"stats {stats.tolist()} (settle {settle_stats.tolist()}); "
-          f"finite {finite}; escaped {escaped}; launches {launches}")
-    want = cfg.solver_iters * steps
+    rate = ("" if geom is None else
+            f" in {secs:.4f} s = {steps / secs:.2f} steps/s on {card}")
+    print(f"[main] dam_break n={n} {_geom_name(cfg.geom)}: {steps} steps"
+          f"{rate}; stats {stats.tolist()} (settle {settle_stats.tolist()});"
+          f" finite {finite}; escaped {escaped}; launches {launches}")
     if not finite or escaped or stats.tolist() != [0, 0, 0] \
             or settle_stats.tolist() != [0, 0, 0]:
         raise AssertionError("main path state or stats are wrong")
-    if any(launches[k] != want for k in expect) \
-            or any(launches[k] for k in idle) or launches["finalize"] != steps:
-        raise AssertionError(f"expected {want} launches of each of {expect}, "
-                             f"none of {idle} and {steps} of finalize, got "
-                             f"{launches}")
+    _check_launches(f"[main] {_geom_name(cfg.geom)}", launches,
+                    _launches(steps, geom=cfg.geom))
 
     if rollout.stepper.scratch is not scratch \
             or [t.data_ptr() for t in scratch] != ptrs \
             or scratch.counters.any():
         raise AssertionError("the rollout replaced the Stepper's scratch or "
                              "left its counters nonzero")
-
-    stages = _stage_breakdown(rollout.stepper, state)
-    total = sum(stages.values())
-    print(f"[main] {_geom_name(cfg.geom)} step breakdown (median of "
-          f"{REPS} steps, CUDA events, ms): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-          + f"; sum {total:.4f}")
     return launches
 
 
@@ -1191,50 +1121,23 @@ def _eager_steps(stepper, state, steps: int):
     return state, total
 
 
-def _profile_line(tag: str, r: dict, steps: int) -> str:
-    if not r["kernels"]:
-        return f"{tag}: the profiler saw no kernels (not measured)"
-    return (f"{tag}: device busy {100 * r['busy_share']:.1f} % of "
-            f"{r['span_ms']:.3f} ms, {r['kernel_ms'] / steps:.4f} device ms "
-            f"and {r['kernels'] / steps:.1f} kernels a step")
-
-
-def _pair_share(r: dict, steps: int) -> str:
-    """What the pair kernels take of a profile's device ms a step."""
-    if not r["kernels"]:
-        return ""
-    pair = sum(ms for name, _, ms in r["by_name"]
-               if any(k in name for k in PAIR_KERNEL_NAMES))
-    return (f", of which the pair kernels {pair / steps:.4f} ms "
-            f"({100 * pair / r['kernel_ms']:.1f} %)")
-
-
-def phase_graph(device, card: str, out_dir: str, geom=None,
-                n: int = N_MAIN) -> dict:
+def phase_graph(device, geom=None, n: int = N_MAIN) -> None:
     """The graph rollout against the eager Stepper loop in `geom` (None:
     the default geometry), from one state settled ROLLOUT_STEPS steps:
     ROLLOUT_STEPS steps of each bitwise equal (x, v, ids, step, stats),
-    the graph's launches exactly the geometry's two solve kernels
-    solver_iters times a step; SYNC_STEPS eager steps and SYNC_STEPS graph
-    steps under torch.cuda.set_sync_debug_mode("error"); steps/s of each
-    in turns (eager, graph, graph, eager); PROFILE_STEPS steps of each
-    under torch.profiler. Returns the rates and profiles."""
+    the graph's launches exactly the geometry's; SYNC_STEPS eager steps
+    and SYNC_STEPS graph steps under torch.cuda.set_sync_debug_mode
+    ("error")."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.ops import cuda_pbf
-    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+    from pdb_sph_tpu_torch.utils.timing import fence
 
     cfg = pbf.default_config(n=n, **({} if geom is None else {"geom": geom}))
     name = _geom_name(cfg.geom)
     rollout = pbf.make_rollout(cfg, "window", ROLLOUT_STEPS, with_stats=True,
                                device=device)
     stepper = rollout.stepper
-    state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
-    fence(device)
-    t0 = time.perf_counter()
-    state, _ = rollout(state, 1)
-    fence(device)
-    first_s = time.perf_counter() - t0
-    state, _ = rollout(state, ROLLOUT_STEPS - 1)
+    state, _ = rollout(pbf.spawn(cfg, "dam_break", seed=0, device=device))
 
     cuda_pbf.reset_launches()
     g, g_stats = rollout(state)
@@ -1253,53 +1156,16 @@ def phase_graph(device, card: str, out_dir: str, geom=None,
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
 
-    runs = {"eager": lambda k: _eager_steps(stepper, state, k),
-            "graph": lambda k: rollout(state, k)}
-    rates: dict[str, list[float]] = {"eager": [], "graph": []}
-    for mode in ("eager", "graph", "graph", "eager"):
-        fence(device)
-        t0 = time.perf_counter()
-        runs[mode](ROLLOUT_STEPS)
-        fence(device)
-        rates[mode].append(ROLLOUT_STEPS / (time.perf_counter() - t0))
-    tag = "tc" if geom is not None else "default"
-    prof = {mode: profile_kernels(lambda: run(PROFILE_STEPS), os.path.join(
-                out_dir, f"graph_{tag}_{mode}.json"))
-            for mode, run in runs.items()}
-
     print(f"[graph] {name} n={n}: {ROLLOUT_STEPS} graph steps vs "
           f"{ROLLOUT_STEPS} eager Stepper.step steps from step "
           f"{int(state.step)}: bitwise equal {equal}; graph launches "
-          f"{ {k: v for k, v in launches.items() if v} }; {SYNC_STEPS} eager "
-          f"and {SYNC_STEPS} graph steps under set_sync_debug_mode('error') "
-          f"without a sync; first call (warm-up step, capture, one replay) "
-          f"{first_s:.4f} s")
-    print(f"[graph] {name}: steps/s eager {rates['eager'][0]:.2f}, graph "
-          f"{rates['graph'][0]:.2f}, graph {rates['graph'][1]:.2f}, eager "
-          f"{rates['eager'][1]:.2f} (host clock, fenced, {ROLLOUT_STEPS} "
-          f"steps each) on {card}; "
-          + "; ".join(_profile_line(f"{m} {PROFILE_STEPS} steps", r,
-                                    PROFILE_STEPS) for m, r in prof.items()))
-    counts = {m: {k: c for k, c, _ in r["by_name"]} for m, r in prof.items()}
-    differ = {k[:48]: (counts["eager"].get(k, 0), counts["graph"].get(k, 0))
-              for k in set(counts["eager"]) | set(counts["graph"])
-              if counts["eager"].get(k, 0) != counts["graph"].get(k, 0)}
-    print(f"[graph] {name}: kernels whose counts differ between the "
-          f"profiled modes (eager, graph): {differ}")
+          f"{_nonzero(launches)}; {SYNC_STEPS} eager and {SYNC_STEPS} graph "
+          f"steps under set_sync_debug_mode('error') without a sync")
     if not all(equal.values()):
         raise AssertionError(f"{name}: the graph left the eager loop's bits: "
                              f"{equal}")
-    expect, idle = _solve_kernels(cfg.geom)
-    want = cfg.solver_iters * ROLLOUT_STEPS
-    if any(launches[k] != want for k in expect) \
-            or any(launches[k] for k in idle) \
-            or launches["finalize"] != ROLLOUT_STEPS:
-        raise AssertionError(f"expected {want} launches of each of {expect}, "
-                             f"none of {idle} and {ROLLOUT_STEPS} of "
-                             f"finalize, got {launches}")
-    return {"rates": rates, "first_s": first_s,
-            "profile": {m: {k: v for k, v in r.items() if k != "by_name"}
-                        for m, r in prof.items()}}
+    _check_launches(f"[graph] {name}", launches,
+                    _launches(ROLLOUT_STEPS, geom=cfg.geom))
 
 
 def _geom_name(geom) -> str:
@@ -1311,17 +1177,36 @@ def _geom_name(geom) -> str:
     return "+".join(on) if on else "default geometry"
 
 
-def _solve_kernels(geom) -> tuple[tuple, tuple]:
-    """(the two solve kernels `geom` launches, the other solve kernels,
-    which it must not launch)."""
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _launches(steps: int, rho: int = 0, geom=None) -> dict:
+    """The kernel launches of `steps` steps in `geom` (None: the default
+    geometry), by LAUNCHES' keys, the ones it never makes left out: its
+    density and project kernels SOLVER_ITERS times a step, finalize once a
+    step and the rho kernel `rho` times (once a diagnostic record). A
+    graph's eager warm-up step counts among the steps (WARMUP_STEPS). The
+    one place that says what a step launches."""
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+
+    geom = geom or KernelGeometry()
     density = ("density_tc" + "_rd2" * geom.mxu_rd2 + "_sum" * geom.mxu_sum
                if geom.mxu_rd2 or geom.mxu_sum else "density_lambda")
     project = ("project_tc" + "_proj" * geom.mxu_proj
                + "_sum" * geom.mxu_sum
                if geom.mxu_proj or geom.mxu_sum else "project")
-    expect = (density, project)
-    return expect, tuple(k for k in (*SOLVE_KERNELS, *TC_FORMS)
-                         if k not in expect)
+    return _nonzero({density: SOLVER_ITERS * steps,
+                     project: SOLVER_ITERS * steps, "finalize": steps,
+                     "density_rho": rho})
+
+
+def _check_launches(tag: str, launches: dict, want: dict) -> None:
+    """Raise unless `launches` are `want` (_launches) kernel by kernel,
+    and no other kernel launched."""
+    if _nonzero(launches) != want:
+        raise AssertionError(f"{tag}: launches {_nonzero(launches)}, "
+                             f"expected {want}")
 
 
 def phase_settle(device, geom=None) -> dict:
@@ -1331,7 +1216,6 @@ def phase_settle(device, geom=None) -> dict:
     from pdb_sph_tpu_torch.geometry import KernelGeometry
     from pdb_sph_tpu_torch.ops import cuda_pbf
 
-    expect, idle = _solve_kernels(geom or KernelGeometry())
     cuda_pbf.reset_launches()
     r = settle.settle_check(device, n=SETTLE_N, steps=SETTLE_GATE_STEPS,
                             geom=geom)
@@ -1341,11 +1225,10 @@ def phase_settle(device, geom=None) -> dict:
         print(f"[settle] {name}: {line}")
     print(f"[settle] {name}: {SETTLE_GATE_STEPS / r['seconds']:.2f} steps/s; "
           f"launches {launches}")
-    want = 3 * (SETTLE_GATE_STEPS + WARMUP_STEPS)
-    if any(launches[k] != want for k in expect) \
-            or any(launches[k] for k in idle):
-        raise AssertionError(f"expected {want} launches of each of {expect} "
-                             f"and none of {idle}, got {launches}")
+    # the gate's one diagnostic record after its rollout
+    _check_launches(f"[settle] {name}", launches,
+                    _launches(SETTLE_GATE_STEPS + WARMUP_STEPS, rho=1,
+                              geom=geom))
     if not r["ok"]:
         raise AssertionError(f"SETTLE CHECK ({name}): FAIL")
     return launches
@@ -1368,12 +1251,12 @@ def _counting(owner, attr: str):
         setattr(owner, attr, real)
 
 
-def _cli_run(argv: list[str], metrics: str,
-             expect=(*SOLVE_KERNELS, "density_rho"), head: str = "[cli]"
-             ) -> tuple[list[dict], dict]:
+def _cli_run(argv: list[str], metrics: str, geom=None,
+             head: str = "[cli]") -> tuple[list[dict], dict]:
     """One in-process run of the runner; (its JSONL records, the kernel
-    launches it made). Raises unless it exits 0, launched every kernel of
-    `expect`, captured one CUDA graph and allocated one pair-kernel
+    launches it made). Raises unless it exits 0, launched the kernels of
+    `geom` (_launches; None: the default geometry) with its diagnostics'
+    and no other, captured one CUDA graph and allocated one pair-kernel
     scratch (its diagnostics take the rollout's)."""
     from pdb_sph_tpu_torch import cli
     from pdb_sph_tpu_torch.ops import cuda_pbf
@@ -1411,9 +1294,10 @@ def _cli_run(argv: list[str], metrics: str,
           f"err {last.get('max_density_err', 0):.4f}, maxv "
           f"{last.get('max_speed', 0):.4f}); one graph capture, one "
           f"pair-kernel scratch; launches {launches}")
-    for k in expect:
-        if not launches[k]:
-            raise AssertionError(f"{k} was not launched in {argv}")
+    want = set(_launches(1, rho=1, geom=geom))
+    if set(_nonzero(launches)) != want:
+        raise AssertionError(f"{argv}: launches {_nonzero(launches)}, not "
+                             f"of the kernels {sorted(want)}")
     return records, launches
 
 
@@ -1421,10 +1305,8 @@ def phase_cli(device, out_dir: str) -> tuple[int, dict]:
     """The runner on the card; returns the rho kernel's launches and those
     of the run with the tensor-core switches in the environment."""
     import pdb_sph_tpu_torch as pbf
-    from pdb_sph_tpu_torch.core.step import diagnostics_fn
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
     from pdb_sph_tpu_torch.io import checkpoint
-    from pdb_sph_tpu_torch.ops import cuda_pbf
-    from pdb_sph_tpu_torch.utils.timing import fence
 
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
@@ -1467,28 +1349,6 @@ def phase_cli(device, out_dir: str) -> tuple[int, dict]:
           f"{spawned[0]:.1f} max {spawned[1]}; at step "
           f"{int(state.step)} mean {final[0]:.1f} max {final[1]}")
 
-    # what one diagnostic record costs the runner: diagnostics_fn on the
-    # rollout's scratch and the four host reads, on the settled 80k dam of
-    # the first run; in turns with a record whose kernel wrapper allocates
-    # its own scratch, as every record did before the runner passed one
-    cfg, state = checkpoint.load(ck, device)
-    scratch = cuda_pbf.alloc_scratch(
-        cfg, cuda_pbf.pad_to_chunks(cfg, cfg.n), device)
-    secs: dict[str, list[float]] = {"scratch": [], "fresh": []}
-    for i in range(2 * (REPS + 2)):
-        mode = "fresh" if i % 2 else "scratch"
-        fence(device)
-        t0 = time.perf_counter()
-        d = diagnostics_fn(cfg, state, scratch if mode == "scratch" else None)
-        _ = (float(d.mean_density), float(d.max_density_err),
-             float(d.max_speed), int(d.n_escaped))
-        secs[mode].append(time.perf_counter() - t0)
-    print(f"[cli] one diagnostic record at n={cfg.n}: "
-          f"{1e3 * statistics.median(secs['scratch'][2:]):.4f} ms on the "
-          f"rollout's scratch, {1e3 * statistics.median(secs['fresh'][2:]):.4f}"
-          f" ms with a fresh one (medians of {REPS} in turns, host clock, "
-          "reads included)")
-
     # the tensor-core forms through the environment, as a user sets them
     tc_ck = os.path.join(out_dir, "dam_tc.npz")
     saved = {k: os.environ.get(k) for k in MXU_ENV}
@@ -1498,16 +1358,13 @@ def phase_cli(device, out_dir: str) -> tuple[int, dict]:
             ["--scene", "dam_break", "--n", str(N_MAIN), "--steps",
              str(CLI_TC_STEPS), *every, "--checkpoint", tc_ck],
             os.path.join(out_dir, "dam_tc.jsonl"),
-            expect=(*TC_SOLVE_KERNELS, "density_rho"))
+            geom=KernelGeometry(**ALL_SWITCHES))
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    if any(l_tc[k] for k in SOLVE_KERNELS):
-        raise AssertionError(f"the PBF_MXU_* run launched FP32 solve "
-                             f"kernels: {l_tc}")
     cfg, _ = checkpoint.load(tc_ck, device)
     print(f"[cli] PBF_MXU_SUM/RD2/PROJ=1: checkpoint geometry {cfg.geom}")
     if not all(getattr(cfg.geom, k) for k in ALL_SWITCHES):
@@ -1530,10 +1387,11 @@ def phase_c2(device, state60, n: int = N_MAIN) -> dict:
         cfg = pbf.default_config(n=n, geom=KernelGeometry(own=own))
         tag = f" own {own}:"
         p4, plan = _sorted_p4(cfg, state60.x)
+        pairs = _pairs(cfg, p4, n)
         fp, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, 0,
-                                reps=C2_REPS, tag=tag)
+                                reps=C2_REPS, tag=tag, pairs=pairs)
         fp.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS, 0,
-                              reps=C2_REPS, tag=tag))
+                              reps=C2_REPS, tag=tag, pairs=pairs))
         rollout = pbf.make_rollout(cfg, "window", C2_STEPS, with_stats=True,
                                    device=device)
         cuda_pbf.reset_launches()
@@ -1543,11 +1401,10 @@ def phase_c2(device, state60, n: int = N_MAIN) -> dict:
         finite = bool(torch.isfinite(st.x).all())
         print(f"[c2] own {own}: {C2_STEPS}-step rollout stats "
               f"{stats.tolist()}, finite {finite}, launches {launches}")
-        want = {**dict.fromkeys(SOLVE_KERNELS, 3 * (C2_STEPS + WARMUP_STEPS)),
-                "finalize": C2_STEPS + WARMUP_STEPS}
-        if stats.tolist() != [0, 0, 0] or not finite or launches != want:
-            raise AssertionError(f"own {own}: rollout stats or launches "
-                                 "are wrong")
+        if stats.tolist() != [0, 0, 0] or not finite:
+            raise AssertionError(f"own {own}: rollout stats are wrong")
+        _check_launches(f"[c2] own {own}", launches,
+                        _launches(C2_STEPS + WARMUP_STEPS, geom=cfg.geom))
         out[own] = {k: v[1] for k, v in fp.items()}
     return out
 
@@ -1558,7 +1415,8 @@ def phase_restricted(device, state60, cfg=None, D: int = 2, rank: int = 0,
     (default: rank 0 of D = 2 on the flagship dam break): the sorted
     step-60 state of `cfg` with the chunks outside the rank's key band
     masked (own keys plus one ring for the density forms, own keys for the
-    project forms). Returns {counter: (ms, bound ms, bound by)}."""
+    project forms). Returns {counter: ms}: pbfbench/work.py counts no pairs
+    of a restricted plan, so no bound."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.core.step import sort_cells
     from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
@@ -1583,7 +1441,7 @@ def phase_restricted(device, state60, cfg=None, D: int = 2, rank: int = 0,
                             plan_p=plan_p, tag=tag, head=head)
     fp.update(_tc_kernels(cfg, p4, d_k, plan_d, n, SETTLE_STEPS, 0,
                           plan_p=plan_p, tag=tag, head=head))
-    return {k: (v[1], v[3], v[4]) for k, v in fp.items()}
+    return {k: v[1] for k, v in fp.items()}
 
 
 def phase_fastpath(device, card: str, n: int = N_MAIN, wall: float = 2.0,
@@ -1592,8 +1450,8 @@ def phase_fastpath(device, card: str, n: int = N_MAIN, wall: float = 2.0,
     size: SHARD_STEPS steps bit for bit the Stepper's; then a
     SHARD_ROLLOUT-step rollout (its first call: the warm-up step, the
     capture and the replays) with stats [n, 0, 0, 0, 0], bit for bit the
-    eager ShardedStepper loop aggregated as the JAX rollout does, and each
-    one's steps/s; returns the rollout's launches."""
+    eager ShardedStepper loop aggregated as the JAX rollout does, and the
+    graph's steps/s on a second call; returns the rollout's launches."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.parallel import sharded
@@ -1620,22 +1478,14 @@ def phase_fastpath(device, card: str, n: int = N_MAIN, wall: float = 2.0,
     rollout = sharded.make_sharded_rollout(cfg, pcfg, None, "window",
                                            SHARD_ROLLOUT, device)
     cuda_pbf.reset_launches()
-    fence(device)
-    t0 = time.perf_counter()
     got, stats, diag = rollout(sst)
-    fence(device)
-    first_s = time.perf_counter() - t0
     launches = dict(cuda_pbf.LAUNCHES)
 
     e, e_stats, e_diag = sst, [], []
-    fence(device)
-    t0 = time.perf_counter()
     for _ in range(SHARD_ROLLOUT):
         e, s, dg = step.step(e)
         e_stats.append(s)
         e_diag.append(dg)
-    fence(device)
-    eager_s = time.perf_counter() - t0
     want_stats = torch.stack(e_stats).sum(0)
     want_stats[0] = e_stats[-1][0]
     want_diag = torch.stack(e_diag).amax(0)
@@ -1652,24 +1502,19 @@ def phase_fastpath(device, card: str, n: int = N_MAIN, wall: float = 2.0,
         cfg, pcfg, scratch=rollout.stepper.work.scratch)(got)[0].tolist()
     print(f"{head} D=1 n={n} wall={wall}: {SHARD_STEPS} steps bitwise equal "
           f"to the Stepper; {SHARD_ROLLOUT} more steps: graph ShardedRollout "
-          f"{SHARD_ROLLOUT / graph_s:.2f} steps/s (first call, with its "
-          f"warm-up step and capture, {first_s:.4f} s), eager "
-          f"ShardedStepper loop {SHARD_ROLLOUT / eager_s:.2f} steps/s on "
-          f"{card}; x, v, ids, bounds, stats and diag bitwise equal: {same}; "
-          f"stats {stats.tolist()}, diag {diag.tolist()}; mean rho "
-          f"{d[0]:.1f} max err {d[1]:.4f}; launches "
-          f"{ {k: v for k, v in launches.items() if v} }")
+          f"{SHARD_ROLLOUT / graph_s:.2f} steps/s on {card} (a second call); "
+          f"x, v, ids, bounds, stats and diag bitwise the eager "
+          f"ShardedStepper loop: {same}; stats {stats.tolist()}, diag "
+          f"{diag.tolist()}; mean rho {d[0]:.1f} max err {d[1]:.4f}; "
+          f"launches {_nonzero(launches)}")
     if not same:
         raise AssertionError("the one-rank graph rollout left the eager "
                              "ShardedStepper loop's bits")
     # diag: [max speed, escaped, nonfinite], each the most of any step
     if stats.tolist() != [[n, 0, 0, 0, 0]] or diag[0, 1:].any():
         raise AssertionError("one-rank rollout stats are wrong")
-    want = 3 * (SHARD_ROLLOUT + WARMUP_STEPS)
-    if launches["density_lambda"] != want or launches["project"] != want \
-            or launches["finalize"] != want // 3:
-        raise AssertionError(f"expected {want} solve launches and "
-                             f"{want // 3} of finalize: {launches}")
+    _check_launches(f"{head} D=1", launches,
+                    _launches(SHARD_ROLLOUT + WARMUP_STEPS, geom=cfg.geom))
     return launches
 
 
@@ -1743,11 +1588,9 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
     warm = WARMUP_STEPS * sharded.captures(torch.device(devices[0]),
                                            Group(0, D, comm))
     warm_steps = warm * (1 + bool(compact_steps))
-    t0 = time.perf_counter()
     got, ranks = launch.rollout_ranks(
         cfg, st, D, chunks, "window", devices=devices, comm=comm,
         timeout_s=RANKS_TIMEOUT_S, retier=retier)
-    secs = time.perf_counter() - t0
     err3 = float((got[0][0].x - refs[marks[0]][0]).abs().max())
     pop = _population(got[1][0].x, refs[marks[1]][0])
     dens = []
@@ -1755,7 +1598,6 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
         w = s[:, 0].double()
         dens.append((m, float((dg[:, 0].double() * w).sum() / w.sum()),
                      float(dg[:, 1].max()), refs[m][1], refs[m][2]))
-    roll_s = got[1][3] + got[2][3]
     launches = {k: sum(r[k] for r in ranks) for k in ranks[0]}
     where = (f"sharing {card}" if len(set(devices)) == 1
              else f"one card each, {card}")
@@ -1766,8 +1608,7 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
         tier = (f"; then the re-tier at step {marks[-2]} to the compact "
                 f"tier, capacities "
                 f"{[compact.capacity, compact.mig_capacity, compact.ghost_capacity]}"
-                f", and {compact_steps} steps on it in {got[3][3]:.4f} s "
-                "(warm-up step and capture included)")
+                f", and {compact_steps} steps on it")
     print(f"{head} D={D} {comm} ranks {where}, n={n} wall={cfg.wall} "
           f"grid_width {cfg.grid_width}, capacities (slots, migration, "
           f"ghosts) {[pcfg.capacity, pcfg.mig_capacity, pcfg.ghost_capacity]}"
@@ -1780,14 +1621,9 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
           "vs the Stepper's: "
           + "; ".join(f"step {m} {a:.2f} vs {b:.2f}, {e:.4f} vs {f:.4f}"
                       for m, a, e, b, f in dens)
-          + f" (the means within {100 * DENS_MEAN_RTOL:g} %); first chunk "
-          f"({marks[0]} steps{', warm-up step and capture' if warm else ''})"
-          f" {got[0][3]:.4f} s; {SHARD_ROLLOUT} steps in "
-          f"{roll_s:.4f} s = {SHARD_ROLLOUT / roll_s:.2f} steps/s (rank 0's "
-          f"clock, fenced); stats by chunk "
-          f"{[g[1].tolist() for g in got]}; launches a rank "
-          f"{[{k: v for k, v in r.items() if v} for r in ranks]}{tier}; "
-          f"{secs:.1f} s with the ranks' start")
+          + f" (the means within {100 * DENS_MEAN_RTOL:g} %); stats by "
+          f"chunk {[g[1].tolist() for g in got]}; launches a rank "
+          f"{[_nonzero(r) for r in ranks]}{tier}")
     torch.testing.assert_close(got[0][0].x, refs[marks[0]][0],
                                rtol=SHARD_RTOL, atol=SHARD_ATOL)
     for _, s, d, _, dg, _ in got:
@@ -1803,8 +1639,8 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
             raise AssertionError(f"{head} D={D}: mean density at step {m} "
                                  "differs from the single device's")
     for r in ranks:
-        _check_launches(f"{head} D={D}", r, SOLVE_KERNELS,
-                        3 * (marks[-1] + warm_steps), rho=len(chunks))
+        _check_launches(f"{head} D={D}", r,
+                        _launches(marks[-1] + warm_steps, rho=len(chunks)))
     return launches, got[len(RANK_CHUNKS) - 1][0]
 
 
@@ -1836,7 +1672,6 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     from pdb_sph_tpu_torch import cli
     from pdb_sph_tpu_torch.io import checkpoint
     from pdb_sph_tpu_torch.parallel import sharded
-    from pdb_sph_tpu_torch.utils.timing import fence
 
     cfg0 = pbf.default_config(n=n)
     st = pbf.spawn(cfg0, "dam_break", seed=0, device=device)
@@ -1850,13 +1685,9 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     # not keeps cd = 0.3 of its velocity in one run only (ops/collide.py),
     # which a rolled comparison carries into later positions (~5e-5 by
     # step 3 of the 80k dam break on an H100)
-    b, err, secs = st, 0.0, 0.0
+    b, err = st, 0.0
     for _ in range(CELL_STEPS):
-        fence(device)
-        t0 = time.perf_counter()
         a, stats = cell.step(b, with_stats=True)
-        fence(device)
-        secs += time.perf_counter() - t0
         if stats.tolist() != [0, 0, 0]:
             raise AssertionError(f"cell step stats {stats.tolist()}")
         b = win(b)
@@ -1867,7 +1698,7 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
     print(f"[cell] n={n}: {cells} occupied cells, at most "
           f"{fullest} a cell; table max_occupied_cells {occ}, "
           f"cell_capacity {cap}; {CELL_STEPS} steps, each from the window "
-          f"backend's state, in {secs:.3f} s, stats [0, 0, 0]; max|dx| vs "
+          f"backend's state, stats [0, 0, 0]; max|dx| vs "
           f"window {err:.3e} (rtol {ORACLE_RTOL:g}, atol {ORACLE_ATOL:g})")
 
     pcfg = sharded.ParallelConfig.create(cfg, 1, state=st)
@@ -1913,43 +1744,40 @@ def phase_cell(device, out_dir: str, n: int = N_MAIN) -> None:
                              f"{captures[0]} graphs, not 1")
 
 
-def phase_backends(device, card: str, out_dir: str, window: dict,
-                   n: int = N_MAIN) -> None:
+def phase_backends(device, card: str, n: int = N_MAIN) -> None:
     """The single-device rollouts of the other backends as CUDA graphs, as
     the JAX rollout scans every backend, each from its spawn against
-    Stepper.step calls, bitwise (x, v, ids, step, stats), stats [0, 0, 0]:
-    the cell backend at n on phase_cell's table, CELL_GRAPH_STEPS steps
-    (the falling dam compresses, and its fullest cell soon outgrows that
-    table's capacity), then graph and eager steps/s in turns (eager,
-    graph, graph, eager) over CELL_RATE_STEPS and CELL_PROFILE_STEPS of
-    each profiled,
-    beside the window backend's (`window`, phase_graph's); the cell backend
-    at N_ORACLE on the table of phase_cell's rule from the window
-    backend's state ROLLOUT_STEPS steps on, ROLLOUT_STEPS steps from it,
-    then SYNC_STEPS graph steps under set_sync_debug_mode("error"); the
-    dense backend at N_ORACLE, DENSE_GRAPH_STEPS steps."""
+    Stepper.step calls, bitwise (x, v, ids, step, stats), stats [0, 0, 0],
+    then the graph's steps/s over a second call: the cell backend at n on
+    phase_cell's table, CELL_GRAPH_STEPS steps (the falling dam
+    compresses, and its fullest cell soon outgrows that table's capacity);
+    the cell backend at N_ORACLE on the table of phase_cell's rule from
+    the window backend's state ROLLOUT_STEPS steps on, ROLLOUT_STEPS steps
+    from it, then SYNC_STEPS graph steps under set_sync_debug_mode
+    ("error"); the dense backend at N_ORACLE, DENSE_GRAPH_STEPS steps."""
     import dataclasses
 
     import pdb_sph_tpu_torch as pbf
-    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+    from pdb_sph_tpu_torch.utils.timing import fence
 
     def graph_vs_eager(cfg, backend: str, state, steps: int):
         rollout = pbf.make_rollout(cfg, backend, steps, with_stats=True,
                                    device=device)
-        fence(device)
-        t0 = time.perf_counter()
         g, g_stats = rollout(state)
-        fence(device)
-        first_s = time.perf_counter() - t0
         e, e_stats = _eager_steps(rollout.stepper, state, steps)
         equal = {f: torch.equal(a, b) for f, a, b in zip(g._fields, g, e)}
         equal["stats"] = torch.equal(g_stats, e_stats)
+        fence(device)
+        t0 = time.perf_counter()
+        rollout(state)
+        fence(device)
+        rate = steps / (time.perf_counter() - t0)
         head = f"[backends] {backend} n={cfg.n}"
         print(f"{head}: the Rollout is a graph {rollout.graphed}; {steps} "
               f"graph steps from step {int(state.step)} vs {steps} eager "
               f"Stepper.step steps: bitwise equal {equal}, stats "
-              f"{g_stats.tolist()}; first call (warm-up step, capture, "
-              f"{steps} replays) {first_s:.3f} s")
+              f"{g_stats.tolist()}; graph {rate:.3f} steps/s on {card} (a "
+              f"second call)")
         if not rollout.graphed or not all(equal.values()) \
                 or g_stats.tolist() != [0, 0, 0]:
             raise AssertionError(f"{head}: not a graph, or it left the eager "
@@ -1959,38 +1787,8 @@ def phase_backends(device, card: str, out_dir: str, window: dict,
     cfg0 = pbf.default_config(n=n)
     st = pbf.spawn(cfg0, "dam_break", seed=0, device=device)
     table, _, _ = _cell_table(cfg0, st.x)
-    cfg = dataclasses.replace(cfg0, **table)
-    rollout, g = graph_vs_eager(cfg, "cell", st, CELL_GRAPH_STEPS)
-    stepper = rollout.stepper
-    runs = {"eager": lambda k: _eager_steps(stepper, g, k),
-            "graph": lambda k: rollout(g, k)}
-    rates: dict[str, list[float]] = {"eager": [], "graph": []}
-    for mode in ("eager", "graph", "graph", "eager"):
-        fence(device)
-        t0 = time.perf_counter()
-        runs[mode](CELL_RATE_STEPS)
-        fence(device)
-        rates[mode].append(CELL_RATE_STEPS / (time.perf_counter() - t0))
-    prof = {mode: profile_kernels(
-                lambda: run(CELL_PROFILE_STEPS),
-                os.path.join(out_dir, f"backends_cell_{mode}.json"))
-            for mode, run in runs.items()}
-    win = window["rates"]
-    print(f"[backends] cell n={n} on phase_cell's table "
-          f"{table['max_occupied_cells']} x {table['cell_capacity']}: "
-          f"steps/s eager {rates['eager'][0]:.3f}, graph "
-          f"{rates['graph'][0]:.3f}, graph {rates['graph'][1]:.3f}, eager "
-          f"{rates['eager'][1]:.3f} (host clock, fenced, {CELL_RATE_STEPS} "
-          f"steps each) on {card}; "
-          + "; ".join(_profile_line(f"{m} {CELL_PROFILE_STEPS} steps", r,
-                                    CELL_PROFILE_STEPS)
-                      for m, r in prof.items())
-          + f"; beside the window backend's ([graph], default geometry): "
-          f"eager {statistics.median(win['eager']):.2f}, graph "
-          f"{statistics.median(win['graph']):.2f} steps/s, "
-          + _profile_line(f"graph {PROFILE_STEPS} steps",
-                          window["profile"]["graph"], PROFILE_STEPS))
-    del rollout, stepper, runs, g
+    graph_vs_eager(dataclasses.replace(cfg0, **table), "cell", st,
+                   CELL_GRAPH_STEPS)
 
     cfg0 = pbf.default_config(n=N_ORACLE)
     st = pbf.make_rollout(cfg0, "window", ROLLOUT_STEPS, device=device)(
@@ -2027,7 +1825,7 @@ def phase_scale_kernels(device, row: str = "dam1m") -> dict:
     nine forms against their plain versions (two launches bitwise equal,
     counters back at 0), each timed beside its bound; the pairs within h
     by the FP32 and the tensor-core rd2; the sampled dense oracle. Returns
-    {counter: (max|err|, ms, bound ms, bound by)}."""
+    {counter: (max|err|, ms, bound ms or None)}."""
     import pdb_sph_tpu_torch as pbf
 
     scene, n, wall = SCALE_ROWS[row]
@@ -2037,51 +1835,40 @@ def phase_scale_kernels(device, row: str = "dam1m") -> dict:
     p4, plan = _sorted_p4(cfg, state.x)
     del state
     head = f"[scale] {row} kernels:"
-    near = _rd2_census(cfg, p4, plan, n, head)
+    _rd2_census(cfg, p4, plan, n, head)
+    pairs = _pairs(cfg, p4, n)
     fp, d_k = _fp32_kernels(cfg, p4, plan, n, SETTLE_STEPS, 0, head=head,
-                            near=near)
+                            pairs=pairs)
     fp.update(_tc_kernels(cfg, p4, d_k, plan, n, SETTLE_STEPS, 0, head=head,
-                          near=near))
+                          pairs=pairs))
     _dense_oracle(cfg, p4, plan, n, head)
-    return {k: (v[0], v[1], v[3], v[4]) for k, v in fp.items()}
+    return {k: (v[0], v[1], v[3]) for k, v in fp.items()}
 
 
-def phase_scale_rollout(device, card: str, row: str, out_dir: str,
-                        geom=None) -> dict:
+def phase_scale_rollout(device, card: str, row: str, geom=None) -> dict:
     """A large row's dam break through the graph rollout in `geom` (None:
-    the default geometry): one settle chunk (its first call, the warm-up
-    step, the capture and one replay, timed alone), then SCALE_STEPS steps
-    timed and SCALE_PROFILE_STEPS profiled (device ms a step); stats
-    [0, 0, 0] over every step, finite, in the JAX row's box, nothing
-    escaped, the geometry's two solve kernels launched 3 a timed step and
-    nothing else; the peak memory allocated from the spawn on. Returns its
-    launches, the step and the final diagnostics."""
+    the default geometry): one settle chunk, then SCALE_STEPS steps, their
+    steps/s unless a cell times this configuration (the 1M row in the
+    default geometry is dam1m.rollout's); stats [0, 0, 0] over every step,
+    finite, in the JAX row's box, nothing escaped, the geometry's kernels
+    launched as many times as its steps need and nothing else; the peak
+    memory allocated from the spawn on. Returns its launches, the step and
+    the final diagnostics."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.ops import cuda_pbf
-    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
+    from pdb_sph_tpu_torch.utils.timing import fence
 
     scene, n, wall = SCALE_ROWS[row]
     steps = SCALE_STEPS
     cfg = pbf.default_config(n=n, wall=wall,
                              **({} if geom is None else {"geom": geom}))
     name = _geom_name(cfg.geom)
-    expect, idle = _solve_kernels(cfg.geom)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     cuda_pbf.reset_launches()
     rollout = pbf.make_rollout(cfg, "window", SCALE_SETTLE, with_stats=True,
                                device=device)
-    state = pbf.spawn(cfg, scene, seed=0, device=device)
-    fence(device)
-    t0 = time.perf_counter()
-    state, total = rollout(state, 1)
-    fence(device)
-    first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state, stats = rollout(state, SCALE_SETTLE - 1)
-    fence(device)
-    settle_s = time.perf_counter() - t0
-    total += stats
+    state, total = rollout(pbf.spawn(cfg, scene, seed=0, device=device))
 
     before = dict(cuda_pbf.LAUNCHES)
     fence(device)
@@ -2091,12 +1878,6 @@ def phase_scale_rollout(device, card: str, row: str, out_dir: str,
     secs = time.perf_counter() - t0
     total += stats
     timed = {k: cuda_pbf.LAUNCHES[k] - before[k] for k in before}
-    profiled = []
-    prof = profile_kernels(
-        lambda: profiled.append(rollout(state, SCALE_PROFILE_STEPS)),
-        os.path.join(out_dir, f"scale_{row}_{'tc' if geom else 'default'}"
-                              ".json"))
-    total += profiled[0][1]
     d = pbf.diagnostics_fn(cfg, state, rollout.stepper.scratch)
     diag = {"mean_density": float(d.mean_density),
             "max_density_err": float(d.max_density_err),
@@ -2108,31 +1889,23 @@ def phase_scale_rollout(device, card: str, row: str, out_dir: str,
     x, v = state.x, state.v
     finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
     boxed = _in_box(x, wall)
+    rate = ("" if row == "dam1m" and geom is None else
+            f" in {secs:.4f} s = {steps / secs:.2f} steps/s = "
+            f"{n * steps / secs:.1f} particle-steps/s on {card}")
     print(f"[scale] {row} {scene} n={n} wall={wall} {name}: "
-          f"{steps} graph steps after a {SCALE_SETTLE}-step settle chunk in "
-          f"{secs:.4f} s = {steps / secs:.2f} steps/s = "
-          f"{n * steps / secs:.1f} particle-steps/s on {card}; first call "
-          f"(warm-up step, capture, one replay) {first_s:.4f} s, the settle "
-          f"chunk's other {SCALE_SETTLE - 1} steps {settle_s:.3f} s; "
-          + _profile_line(f"{SCALE_PROFILE_STEPS} steps profiled", prof,
-                          SCALE_PROFILE_STEPS)
-          + _pair_share(prof, SCALE_PROFILE_STEPS)
-          + f"; peak memory allocated {peak / 2 ** 30:.3f} GiB; stats over "
-          f"every step {total.tolist()}; finite {finite}; in "
+          f"{steps} graph steps after a {SCALE_SETTLE}-step settle chunk"
+          f"{rate}; peak memory allocated {peak / 2 ** 30:.3f} GiB; stats "
+          f"over every step {total.tolist()}; finite {finite}; in "
           f"[-{BOX_MARGIN}, wall + {BOX_MARGIN}]^3 {boxed}; at step "
           f"{int(state.step)}: mean rho {diag['mean_density']:.2f}, max "
           f"|rho/rho0 - 1| {diag['max_density_err']:.4f}, max speed "
-          f"{diag['max_speed']:.4f}, escaped {diag['n_escaped']}; timed "
-          f"launches { {k: c for k, c in timed.items() if c} }")
+          f"{diag['max_speed']:.4f}, escaped {diag['n_escaped']}; launches "
+          f"of those steps {_nonzero(timed)}")
     if total.tolist() != [0, 0, 0] or not finite or not boxed \
             or diag["n_escaped"] or diag["nan"]:
         raise AssertionError(f"{row} {name}: state or stats are wrong")
-    want = cfg.solver_iters * steps
-    if any(timed[k] != want for k in expect) or any(timed[k] for k in idle) \
-            or timed["finalize"] != steps:
-        raise AssertionError(f"{row}: expected {want} timed launches of each "
-                             f"of {expect}, none of {idle} and {steps} of "
-                             f"finalize: {timed}")
+    _check_launches(f"[scale] {row} {name}", timed,
+                    _launches(steps, geom=cfg.geom))
     return {"launches": launches, "step": int(state.step), **diag}
 
 
@@ -2191,13 +1964,9 @@ def phase_scale_blowup(device, card: str, row: str = "blowup1m") -> dict:
     if total.tolist() != [0, 0, 0] or not finite or not boxed \
             or any(e or nan for *_, e, nan in records):
         raise AssertionError(f"{row}: state, stats or escapes are wrong")
-    want = cfg.solver_iters * (BLOWUP_STEPS + WARMUP_STEPS * rollout.graphed)
-    if any(launches[k] != want for k in SOLVE_KERNELS) \
-            or launches["density_rho"] != len(records) \
-            or launches["finalize"] != want // cfg.solver_iters:
-        raise AssertionError(f"{row}: expected {want} solve launches, "
-                             f"{len(records)} rho launches and one finalize "
-                             f"a step: {launches}")
+    _check_launches(f"[scale] {row}", launches,
+                    _launches(BLOWUP_STEPS + WARMUP_STEPS * rollout.graphed,
+                              rho=len(records), geom=cfg.geom))
     return launches
 
 
@@ -2246,10 +2015,6 @@ def _nccl_cfg(n: int, wall: float):
     return pbf.default_config(n=n, wall=wall, **NCCL_TABLE)
 
 
-def _nonzero(counts: dict) -> dict:
-    return {k: v for k, v in counts.items() if v}
-
-
 def _eager_sharded(stepper, sst, steps: int):
     """`steps` eager ShardedStepper.step calls from `sst`, aggregated as
     the rollout does and gathered: the loop the graph is held against."""
@@ -2261,32 +2026,6 @@ def _eager_sharded(stepper, sst, steps: int):
         sst, stats, diag = stepper.step(sst)
         sharded._aggregate(acc, stats, diag)
     return (sst, *stepper.gather(*acc))
-
-
-def _nccl_profile(run, steps: int, trace: str, group=None,
-                  device=None) -> dict:
-    """`run()` (`steps` steps) under torch.profiler: busy share, device ms
-    a step, and of them the NCCL kernels' and the pair kernels' ms. With a
-    group, every rank's profiler is running before a barrier (one
-    all_gather, then a fence) lines the ranks up, and the window read
-    opens after it: the NCCL kernels' ms is then what the step's exchange
-    waits, not another rank's late start."""
-    from pdb_sph_tpu_torch.utils.timing import fence, profile_kernels
-
-    def barrier():
-        fence(device)
-        group.all_gather(torch.zeros((1,), device=device))
-        fence(device)
-
-    r = profile_kernels(run, trace, None if group is None else barrier)
-    if not r["kernels"]:
-        return {"kernels": 0}
-    nccl = sum(ms for name, _, ms in r["by_name"] if "nccl" in name.lower())
-    pair = sum(ms for name, _, ms in r["by_name"]
-               if any(k in name for k in PAIR_KERNEL_NAMES))
-    return {"kernels": r["kernels"] / steps, "busy": r["busy_share"],
-            "span_ms": r["span_ms"] / steps, "ms": r["kernel_ms"] / steps,
-            "nccl_ms": nccl / steps, "pair_ms": pair / steps}
 
 
 def _weighted_density(stats: torch.Tensor, dens: torch.Tensor) -> float:
@@ -2310,13 +2049,12 @@ def _rank_window(job: dict, group, device):
 def _nccl_main(group, device, job: dict, res: dict) -> None:
     """Graph against eager on the job's row, from the state after the
     rollout's first chunk (its warm-up step and capture): bitwise, under
-    the sync-debug mode, the rates in turns, the profiles, and
+    the sync-debug mode; then the graph's steps/s twice, and
     bench_multichip's fields."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.parallel import sharded
     from pdb_sph_tpu_torch.utils.timing import fence
 
-    r, D = group.rank, group.size
     cfg, pcfg, sst0 = _rank_window(job, group, device)
     roll = sharded.make_sharded_rollout(cfg, pcfg, group, "window", 1,
                                         device)
@@ -2345,22 +2083,14 @@ def _nccl_main(group, device, job: dict, res: dict) -> None:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize(device)
 
-    runs = {"eager": lambda k: _eager_sharded(roll.stepper, base, k),
-            "graph": lambda k: roll(base, k)}
-    rates = {"eager": [], "graph": []}
-    for mode in ("eager", "graph", "graph", "eager"):
+    rates = []
+    for _ in range(2):
         fence(device)
         t0 = time.perf_counter()
-        runs[mode](steps)
+        roll(base, steps)
         fence(device)
-        rates[mode].append(steps / (time.perf_counter() - t0))
+        rates.append(steps / (time.perf_counter() - t0))
     res["rates"] = rates
-    k = job["profile_steps"]
-    res["profile"] = {
-        mode: _nccl_profile(lambda run=run: run(k), k, os.path.join(
-            job["trace_dir"], f"nccl_{job['row']}_d{D}_{mode}_rank{r}.json"),
-            group, device)
-        for mode, run in runs.items()}
     dens = diag(g)
     res["bench"] = {
         "step": job["start"] + steps,
@@ -2405,8 +2135,8 @@ def _nccl_switches(group, device, job: dict, res: dict) -> None:
 
 def _nccl_large(group, device, job: dict, res: dict) -> None:
     """The large row: one settle chunk (its first call warms up and
-    captures), SCALE_STEPS graph steps timed, NCCL_PROFILE_STEPS profiled;
-    stats over every step, the box, the peak memory of this rank."""
+    captures), SCALE_STEPS graph steps timed; stats over every step, the
+    box, the peak memory of this rank."""
     from pdb_sph_tpu_torch.parallel import sharded
     from pdb_sph_tpu_torch.utils.timing import fence
 
@@ -2415,25 +2145,18 @@ def _nccl_large(group, device, job: dict, res: dict) -> None:
     cfg, pcfg, sst = _rank_window(job, group, device)
     roll = sharded.make_sharded_rollout(cfg, pcfg, group, "window", 1,
                                         device)
-    fence(device)
-    t0 = time.perf_counter()
     sst, s1, d1 = roll(sst, job["settle"])
     fence(device)
-    settle_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sst, s2, d2 = roll(sst, job["steps"])
     fence(device)
     secs = time.perf_counter() - t0
-    k = job["profile_steps"]
-    prof = _nccl_profile(lambda: roll(sst, k), k, os.path.join(
-        job["trace_dir"], f"nccl_{job['row']}_d{group.size}_rank"
-                          f"{group.rank}.json"), group, device)
     dens = sharded.make_sharded_diagnostics(
         cfg, pcfg, group, "window", roll.stepper.work.scratch)(sst)
     st = sharded.collect(sst, group)
     fence(device)
     res["large"] = {
-        "settle_s": settle_s, "secs": secs, "profile": prof,
+        "secs": secs,
         "stats": [s1.tolist(), s2.tolist()],
         "max_speed": float(torch.maximum(d1, d2)[:, 0].max()),
         "n_escaped": int((d1 + d2)[:, 1].sum()),
@@ -2454,7 +2177,6 @@ def _nccl_cell(group, device, job: dict, res: dict) -> None:
 
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.parallel import sharded
-    from pdb_sph_tpu_torch.utils.timing import fence
 
     cfg = dataclasses.replace(pbf.default_config(n=job["n"]),
                               **job["table"])
@@ -2464,20 +2186,16 @@ def _nccl_cell(group, device, job: dict, res: dict) -> None:
     win, cell = (sharded.make_sharded_rollout(cfg, pcfg, group, backend, 1,
                                               device)
                  for backend in ("window", "cell"))
-    errs, stats, secs = [], [], []
+    errs, stats = [], []
     for _ in range(job["steps"]):
-        fence(device)
-        t0 = time.perf_counter()
         a, s, _ = cell(b, 1)
-        fence(device)
-        secs.append(time.perf_counter() - t0)
         b, _, _ = win(b, 1)
         xa, xb = (sharded.collect(t, group).x for t in (a, b))
         bad = ~torch.isclose(xa, xb, rtol=ORACLE_RTOL, atol=ORACLE_ATOL)
         errs.append([float((xa - xb).abs().max()), int(bad.sum())])
         stats.append(s.tolist())
     res["cell"] = {"graphed": [win.graphed, cell.graphed], "errs": errs,
-                   "stats": stats, "secs": secs}
+                   "stats": stats}
 
 
 def _record_local_plans(path: str):
@@ -2521,14 +2239,12 @@ def _record_local_plans(path: str):
     return undo
 
 
-def _tier_run(group, device, cfg, pcfg, st, job: dict, name: str) -> tuple:
+def _tier_run(group, device, cfg, pcfg, st, job: dict) -> tuple:
     """One tier from the state `st`: its rollout's first call (warm-up,
-    capture, job["steps"] replays), then job["profile_steps"] profiled
-    behind the barrier; (the rollout, its density diagnostics, its first
-    state, the result of the steps, the tier's figures)."""
+    capture, job["steps"] replays); (the rollout, its density diagnostics,
+    its first state, the result of the steps, the tier's figures)."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
     from pdb_sph_tpu_torch.parallel import sharded
-    from pdb_sph_tpu_torch.utils.timing import fence
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2537,22 +2253,13 @@ def _tier_run(group, device, cfg, pcfg, st, job: dict, name: str) -> tuple:
     if not roll.graphed:
         raise AssertionError("the NCCL ranks' ShardedRollout is not a graph")
     cuda_pbf.reset_launches()
-    fence(device)
-    t0 = time.perf_counter()
     g, gs, gd = roll(s0, job["steps"])
-    fence(device)
-    first_s = time.perf_counter() - t0
     launches = _nonzero(cuda_pbf.LAUNCHES)
-    k = job["profile_steps"]
-    prof = _nccl_profile(lambda: roll(s0, k), k, os.path.join(
-        job["trace_dir"], f"tiers_d{group.size}_{name}_rank{group.rank}"
-                          ".json"), group, device)
     act = gs[:, 0].double()
     return roll, dens, s0, (g, gs, gd), {
         "slots": pcfg.capacity + 2 * pcfg.ghost_capacity,
         "capacity": pcfg.capacity, "ghost_capacity": pcfg.ghost_capacity,
-        "mig_capacity": pcfg.mig_capacity, "first_s": first_s,
-        "launches": launches, "profile": prof,
+        "mig_capacity": pcfg.mig_capacity, "launches": launches,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
         "stats": gs.tolist(), "diag": gd.tolist(),
         "balance": float(act.min() / act.mean())}
@@ -2603,7 +2310,7 @@ def _nccl_tiers(group, device, job: dict, res: dict) -> None:
     job["steps"] graph steps, then freed (ShardedRollout.release) before
     the next tier allocates; the density of both final states; the compact
     tier's graph against its eager loop; then on rollouts built anew, both
-    alive, the tiers in lockstep (_lockstep) and their rates in turns.
+    alive, the tiers in lockstep (_lockstep).
     With job["plans"], the compact tier's first step also leaves the local
     set and plans of rank job["plans_rank"] there."""
     from pdb_sph_tpu_torch import interop
@@ -2619,7 +2326,7 @@ def _nccl_tiers(group, device, job: dict, res: dict) -> None:
     out, finals = {}, {}
     for name, pcfg in tiers.items():
         roll, dens, s0, (g, gs, gd), out[name] = _tier_run(
-            group, device, cfg, pcfg, st, job, name)
+            group, device, cfg, pcfg, st, job)
         finals[name] = [t.cpu() for t in sharded.collect(g, group)[:3]]
         out[name]["mean_density"] = _weighted_density(gs, dens(g))
         if name == "compact":
@@ -2654,17 +2361,8 @@ def _nccl_tiers(group, device, job: dict, res: dict) -> None:
         roll(s0, 1)  # warm-up step and capture
         rolls[name] = (roll, s0)
     out["lockstep"] = _lockstep(group, rolls, job["steps"])
-    rates = {"spawn": [], "compact": []}
-    for name in ("spawn", "compact", "compact", "spawn"):
-        roll, s0 = rolls[name]
-        fence(device)
-        t0 = time.perf_counter()
-        roll(s0, job["steps"])
-        fence(device)
-        rates[name].append(job["steps"] / (time.perf_counter() - t0))
     for roll, _ in rolls.values():
         roll.release()
-    out["rates"] = rates
     res["tiers"] = out
 
 
@@ -2751,10 +2449,10 @@ def _bench_line(row: str, D: int, n: int, rate: float, bench: dict) -> str:
         "slab_bounds": bench["slab_bounds"]})
 
 
-def phase_nccl_single(device, card: str, out_dir: str) -> dict:
+def phase_nccl_single(device, card: str) -> None:
     """The row on one card, the one-rank fast path as a graph: the
-    correctness marks' steps, then NCCL_STEPS graph steps timed twice and
-    NCCL_PROFILE_STEPS profiled; bench_multichip.py's line for D = 1."""
+    correctness marks' steps, then NCCL_STEPS graph steps timed twice;
+    bench_multichip.py's line for D = 1."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.parallel import sharded
     from pdb_sph_tpu_torch.utils.timing import fence
@@ -2773,9 +2471,6 @@ def phase_nccl_single(device, card: str, out_dir: str) -> dict:
         g, gs, gd = roll(sst, NCCL_STEPS)
         fence(device)
         rates.append(NCCL_STEPS / (time.perf_counter() - t0))
-    prof = _nccl_profile(lambda: roll(sst, NCCL_PROFILE_STEPS),
-                         NCCL_PROFILE_STEPS,
-                         os.path.join(out_dir, "nccl_dam1m_d1.json"))
     dens = sharded.make_sharded_diagnostics(
         cfg, pcfg, scratch=roll.stepper.work.scratch)(g)
     bench = {"per_shard_active": gs[:, 0].tolist(),
@@ -2787,67 +2482,39 @@ def phase_nccl_single(device, card: str, out_dir: str) -> dict:
     rate = statistics.median(rates)
     print(f"[nccl] dam1m D=1 (the one-rank fast path, a graph) on {card}: "
           f"graph {rates[0]:.2f}, {rates[1]:.2f} steps/s over {NCCL_STEPS} "
-          f"steps from step {start}; {_nccl_prof_txt(prof)}")
+          f"steps from step {start}")
     print(f"[nccl] bench_multichip line D=1: "
           f"{_bench_line('dam1m', 1, n, rate, bench)}")
     if gs[:, 1:].any() or gd[:, 1:].any():
         raise AssertionError(f"dam1m D=1: stats {gs.tolist()} {gd.tolist()}")
-    return {"rate": rate, "profile": prof}
-
-
-def _nccl_prof_txt(p: dict) -> str:
-    if not p.get("kernels"):
-        return "the profiler saw no kernels (not measured)"
-    return (f"profiled: busy {100 * p['busy']:.1f} %, {p['ms']:.4f} device "
-            f"ms a step (span {p['span_ms']:.4f} ms), of which NCCL "
-            f"{p['nccl_ms']:.4f} ms and the pair kernels {p['pair_ms']:.4f} "
-            f"ms, {p['kernels']:.1f} kernels a step")
 
 
 def _nccl_run(D: int, job: dict, timeout_s: float = RANKS_TIMEOUT_S):
-    """`job` on D NCCL ranks, cards 0 .. D-1: each rank's results and the
-    seconds from the start of the ranks to their end."""
+    """`job` on D NCCL ranks, cards 0 .. D-1: each rank's results."""
     from pdb_sph_tpu_torch.parallel import launch
 
     with tempfile.TemporaryDirectory(prefix="nccl_") as workdir:
-        t0 = time.perf_counter()
         launch.run(_nccl_rank, D, [f"cuda:{r}" for r in range(D)],
                    comm="nccl", timeout_s=timeout_s, workdir=workdir,
                    args=(job,))
-        secs = time.perf_counter() - t0
         ranks = []
         for r in range(D):
             with open(os.path.join(workdir, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-    return ranks, secs
+    return ranks
 
 
-def _check_launches(tag: str, launches: dict, expect: tuple, want: int,
-                    rho: int = 0) -> None:
-    """Raise unless `expect`'s kernels launched `want` times each (three
-    solver iterations a step), finalize once a step, the rho kernel `rho`
-    times and nothing else."""
-    got = _nonzero(launches)
-    need = {**dict.fromkeys(expect, want), "finalize": want // 3,
-            **({"density_rho": rho} if rho else {})}
-    if got != need:
-        raise AssertionError(f"{tag}: launches {got}, expected {need}")
-
-
-def phase_nccl(card: str, D: int, out_dir: str,
-               extra: dict | None = None) -> list[dict]:
+def phase_nccl(card: str, D: int, extra: dict | None = None) -> list[dict]:
     """The row on D NCCL ranks, one card each, after phase_two_ranks has
     held them against the Stepper: the graph bitwise the eager loop, the
-    sync-debug steps, the rates and every rank's profiles,
-    bench_multichip's line; `extra` adds the D = 4 parts. Returns the
-    ranks' results."""
+    sync-debug steps, the graph's rates, bench_multichip's line; `extra`
+    adds the D = 4 parts. Returns the ranks' results."""
     n, wall = NCCL_ROWS["dam1m"]
     start = RANK_MARKS[-1]
     job = {"row": "dam1m", "n": n, "wall": wall, "start": start,
            "steps": NCCL_STEPS, "sync_steps": NCCL_SYNC_STEPS,
-           "profile_steps": NCCL_PROFILE_STEPS, "trace_dir": out_dir,
            **(extra or {})}
-    ranks, secs = _nccl_run(D, job)
+    ranks = _nccl_run(D, job)
     r0 = ranks[0]
     head = f"[nccl] dam1m D={D}"
     rates = r0["rates"]
@@ -2855,39 +2522,22 @@ def phase_nccl(card: str, D: int, out_dir: str,
           f"ShardedStepper steps from step {start}, bitwise equal "
           f"on every rank: {[r['bitwise'] for r in ranks]}; "
           f"{NCCL_SYNC_STEPS} graph steps under set_sync_debug_mode('error') "
-          f"on every rank without a sync; steps/s (rank 0's clock, fenced) "
-          f"eager {rates['eager'][0]:.2f}, graph {rates['graph'][0]:.2f}, "
-          f"graph {rates['graph'][1]:.2f}, eager {rates['eager'][1]:.2f}; "
-          f"{secs:.1f} s with the ranks' start")
-    for r, res in enumerate(ranks):
-        print(f"{head} rank {r} ({res['card']}): "
-              + "; ".join(f"{mode} {NCCL_PROFILE_STEPS} steps "
-                          + _nccl_prof_txt(p)
-                          for mode, p in res["profile"].items()))
-    rate = statistics.median(rates["graph"])
+          f"on every rank without a sync; graph {rates[0]:.2f}, "
+          f"{rates[1]:.2f} steps/s (rank 0's clock, fenced) on {card}")
+    rate = statistics.median(rates)
     print(f"[nccl] bench_multichip line D={D}: "
           f"{_bench_line('dam1m', D, n, rate, r0['bench'])}; mean rho "
           f"{r0['bench']['mean_density']:.2f} at step {r0['bench']['step']}")
     if not all(all(r["bitwise"].values()) for r in ranks):
         raise AssertionError(f"{head}: the graph left the eager loop's bits")
     for r in ranks:
-        _check_launches(f"{head} graph", r["graph_launches"], SOLVE_KERNELS,
-                        3 * NCCL_STEPS)
+        _check_launches(f"{head} graph", r["graph_launches"],
+                        _launches(NCCL_STEPS))
     b = r0["bench"]
     if any(b["overflows"]) or b["n_escaped"] or b["nan"] \
             or sum(b["per_shard_active"]) != n:
         raise AssertionError(f"{head}: bench stats {b}")
     return ranks
-
-
-def _tier_prof_txt(p: dict) -> str:
-    if not p.get("kernels"):
-        return "the profiler saw no kernels (not measured)"
-    rest = p["ms"] - p["pair_ms"] - p["nccl_ms"]
-    return (f"{p['ms']:.4f} device ms a step = pair kernels "
-            f"{p['pair_ms']:.4f} + NCCL {p['nccl_ms']:.4f} + the rest "
-            f"{rest:.4f}; {p['kernels']:.1f} kernels a step; busy "
-            f"{100 * p['busy']:.1f} %")
 
 
 def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
@@ -2906,7 +2556,7 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
     head = f"[tiers] dam1m D={D}"
     r0 = ranks[0]["tiers"]
     steps = NCCL_STEPS
-    rates, lock = r0["rates"], r0["lockstep"]
+    lock = r0["lockstep"]
     part = lock["bounds_part_at"]
     dens = [r0[t]["mean_density"] for t in ("spawn", "compact")]
     share = abs(dens[1] - dens[0]) / dens[0]
@@ -2918,11 +2568,9 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
                    f"{lock['close_3_after']})")
     print(f"{head} on {card}: from the collected state at step "
           f"{RANK_MARKS[-1]}, each tier distributed from it and run {steps} "
-          f"graph steps; steps/s (rank 0's clock, fenced) spawn "
-          f"{rates['spawn'][0]:.2f}, compact {rates['compact'][0]:.2f}, "
-          f"compact {rates['compact'][1]:.2f}, spawn {rates['spawn'][1]:.2f};"
-          f" in lockstep the two tiers' states are bitwise equal through "
-          f"step {lock['bitwise_through']} of {steps}: {parted}; final "
+          f"graph steps; in lockstep the two tiers' states are bitwise "
+          f"equal through step {lock['bitwise_through']} of {steps}: "
+          f"{parted}; final "
           f"states bitwise equal {r0['final_bitwise']} (max|dx| "
           f"{r0['final_max_dx']:.3e}), mean rho spawn {dens[0]:.2f}, "
           f"compact {dens[1]:.2f} ({100 * share:.4f} %); compact-tier graph "
@@ -2936,10 +2584,7 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
             print(f"{head} rank {r} {name} tier: local slots {e['slots']} "
                   f"(capacity {e['capacity']} + 2 x ghosts "
                   f"{e['ghost_capacity']}), migration {e['mig_capacity']}; "
-                  f"first call (warm-up, capture, {steps} steps) "
-                  f"{e['first_s']:.4f} s; {NCCL_PROFILE_STEPS} steps "
-                  f"profiled: {_tier_prof_txt(e['profile'])}; peak memory "
-                  f"allocated {e['peak_gib']:.3f} GiB, "
+                  f"peak memory allocated {e['peak_gib']:.3f} GiB, "
                   f"{e['allocated_after_release_gib']:.3f} GiB after its "
                   f"release; balance_min_over_mean {e['balance']:.6f}; "
                   f"this rank's stats {e['stats'][r]}; launches "
@@ -2955,9 +2600,7 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
         a, b = t["spawn"], t["compact"]
         if not (b["slots"] < a["slots"] and b["peak_gib"] < a["peak_gib"]):
             bad.append(f"rank {r}: the compact tier is not smaller")
-        want = {**dict.fromkeys(SOLVE_KERNELS, 3 * (steps + WARMUP_STEPS)),
-                "finalize": steps + WARMUP_STEPS}
-        if _nonzero(b["launches"]) != want:
+        if _nonzero(b["launches"]) != _launches(steps + WARMUP_STEPS):
             bad.append(f"rank {r}: compact launches {b['launches']}")
     for name in ("spawn", "compact"):
         st = torch.tensor(r0[name]["stats"])
@@ -3007,8 +2650,9 @@ def phase_tier_kernels(device, cfg, path: str, D: int, rank: int,
     _record_local_plans): against their plain versions at the restricted
     checks' tolerances, the project forms with mxu_proj with the float64
     witness (_proj_witness, into `witnesses`), two launches bitwise equal,
-    the counters back at 0, each beside its bound. Returns {counter:
-    (max|err|, ms, plain ms, bound ms, bound by)}."""
+    the counters back at 0, each timed (no bound: work.py counts no pairs
+    of a rank's local set). Returns {counter: (max|err|, ms, plain ms,
+    None)}."""
     head = f"[tiers] dam1m D={D}"
     p4, n, plan_d, plan_p = _load_local_plans(
         device, path, f"{head} compact tier, rank {rank}'s local set at "
@@ -3027,7 +2671,6 @@ def _check_switches(card: str, ranks: list[dict]) -> None:
 
     base = ranks[0]["switches"]["default geometry"]
     for name, s in ranks[0]["switches"].items():
-        expect, _ = _solve_kernels(KernelGeometry(**s["switches"]))
         share = abs(s["mean_density"] - base["mean_density"]) \
             / base["mean_density"]
         stats = torch.tensor(s["stats"])
@@ -3041,9 +2684,11 @@ def _check_switches(card: str, ranks: list[dict]) -> None:
         if stats[:, 1:].sum() or not share <= DENS_MEAN_RTOL \
                 or torch.tensor(s["diag"])[:, 1:].sum():
             raise AssertionError(f"[nccl] {name}: stats or density")
+        want = _launches(NCCL_SWITCH_STEPS + WARMUP_STEPS,
+                         geom=KernelGeometry(**s["switches"]))
         for r in ranks:
             _check_launches(f"[nccl] {name}", r["switches"][name]["launches"],
-                            expect, 3 * (NCCL_SWITCH_STEPS + WARMUP_STEPS))
+                            want)
 
 
 def _check_large(card: str, ranks: list[dict], n: int, wall: float) -> None:
@@ -3052,8 +2697,7 @@ def _check_large(card: str, ranks: list[dict], n: int, wall: float) -> None:
     stats = torch.tensor(big["stats"])
     print(f"[nccl] dam2m D={len(ranks)} n={n} wall={wall} on {card}: "
           f"{SCALE_STEPS} graph steps after a {SCALE_SETTLE}-step settle "
-          f"chunk (first call included: {big['settle_s']:.3f} s) in "
-          f"{big['secs']:.4f} s = {rate:.2f} steps/s = {rate * n:.1f} "
+          f"chunk in {big['secs']:.4f} s = {rate:.2f} steps/s = {rate * n:.1f} "
           f"particle-steps/s (rank 0's clock); stats {big['stats']}; finite "
           f"{big['finite']}; in [-{BOX_MARGIN}, wall + {BOX_MARGIN}]^3 "
           f"{big['in_box']}; escaped {big['n_escaped']}; max speed "
@@ -3061,9 +2705,6 @@ def _check_large(card: str, ranks: list[dict], n: int, wall: float) -> None:
           f"|rho/rho0 - 1| {big['max_density_err']:.4f}; slab bounds "
           f"{big['slab_bounds']}; peak memory allocated a rank "
           f"{[round(r['large']['peak_gib'], 3) for r in ranks]} GiB")
-    for r, res in enumerate(ranks):
-        print(f"[nccl] dam2m D={len(ranks)} rank {r}: "
-              + _nccl_prof_txt(res["large"]["profile"]))
     if stats[:, :, 1:].sum() or int(stats[-1, :, 0].sum()) != n \
             or not big["finite"] or not big["in_box"] or big["n_escaped"] \
             or big["nan"] or big["n"] != n:
@@ -3076,9 +2717,7 @@ def _check_cell(card: str, ranks: list[dict], n: int, table: dict) -> None:
           f"{table}: graphs (window, cell) {c['graphed']}; "
           f"{len(c['errs'])} steps, each from the window backend's state: "
           f"max|dx| vs window and coordinates outside rtol {ORACLE_RTOL:g} "
-          f"atol {ORACLE_ATOL:g} {c['errs']}; stats {c['stats']}; seconds a "
-          f"cell step (the first with its warm-up and capture) "
-          f"{[round(s, 4) for s in c['secs']]}")
+          f"atol {ORACLE_ATOL:g} {c['errs']}; stats {c['stats']}")
     if not all(c["graphed"]) or any(bad for _, bad in c["errs"]) \
             or any(sum(row[1:]) for s in c["stats"] for row in s):
         raise AssertionError("[nccl] the cell backend left the window's")
@@ -3280,7 +2919,6 @@ def phase_soak(device, card: str, out_dir: str, failures: list
     figures})."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.parallel import launch, soak
-    from pdb_sph_tpu_torch.utils.timing import fence
 
     D = SOAK_D
     total = dict.fromkeys(KERNELS, 0)
@@ -3297,7 +2935,6 @@ def phase_soak(device, card: str, out_dir: str, failures: list
         plans = os.path.join(out_dir, f"soak_{scene}_plans.pt")
         arrays = tuple(t.numpy() for t in st[:3])
         with tempfile.TemporaryDirectory(prefix="soak_") as workdir:
-            t0 = time.perf_counter()
             try:
                 launch.run(_soak_rank, D, [f"cuda:{r}" for r in range(D)],
                            comm="nccl", timeout_s=SOAK_TIMEOUT_S,
@@ -3308,45 +2945,39 @@ def phase_soak(device, card: str, out_dir: str, failures: list
                 print(f"{head} FAILED: {e}")
                 failures.append(f"{head}: {e}")
                 continue
-            secs = time.perf_counter() - t0
             got, ranks = launch.read_chunks(workdir, D, len(chunks))
             for r in range(D):
                 with open(os.path.join(workdir, f"notes{r}.txt")) as f:
                     print(f"{head} rank {r} stages (seconds from its start): "
                           + "; ".join(f.read().splitlines()))
         rows, bad = soak.check(cfg, D, st, got, chunks, retier, limit)
-        for r, (ch, k) in zip(rows, zip(got, chunks)):
+        for r, ch in zip(rows, got):
             print(f"{head} step {r['step']} {r['tier']} tier: "
                   f"balance_min_over_mean {r['balance']:.6f}, max/mean "
                   f"{r['imbalance']:.6f}, max speed {r['max_speed']:.4f}, "
                   f"mean rho {_weighted_density(ch.stats, ch.density):.2f}"
                   f", boundary moves {r['moves']}, narrowest slab "
-                  f"{r['min_slab']} keys; {r['secs']:.4f} s "
-                  f"({k / r['secs']:.2f} steps/s, rank 0's clock, fenced)")
+                  f"{r['min_slab']} keys")
         steps = sum(chunks)
         tiers = 1 + (retier is not None)
         for r, counts in enumerate(ranks):
             try:
-                _check_launches(f"{head} rank {r}", counts, SOLVE_KERNELS,
-                                3 * (steps + WARMUP_STEPS * tiers),
-                                rho=len(chunks))
+                _check_launches(f"{head} rank {r}", counts,
+                                _launches(steps + WARMUP_STEPS * tiers,
+                                          rho=len(chunks)))
             except AssertionError as e:
                 bad.append(str(e))
             for k, v in counts.items():
-                total[k] += v
+                total[k] = total.get(k, 0) + v
 
         # the one-card graph rollout from the same spawn
         roll = pbf.make_rollout(cfg, "window", NCCL_STEPS, with_stats=True,
                                 device=device)
         ref = type(st)(*(t.to(device) for t in st))
         sums = torch.zeros((3,), dtype=torch.int32, device=device)
-        fence(device)
-        t0 = time.perf_counter()
         for done in range(0, steps, NCCL_STEPS):
             ref, s_k = roll(ref, min(NCCL_STEPS, steps - done))
             sums += s_k
-        fence(device)
-        ref_s = time.perf_counter() - t0
         d = pbf.diagnostics_fn(cfg, ref, roll.stepper.scratch)
         ref_rho = float(d.mean_density)
         mine = _weighted_density(got[-1].stats, got[-1].density)
@@ -3356,13 +2987,12 @@ def phase_soak(device, card: str, out_dir: str, failures: list
             bad.append(f"mean rho {mine:.2f} vs one card's {ref_rho:.2f}, "
                        f"one card's stats {sums.tolist()}")
         print(f"{head} on {card}: n={n} wall={wall}, chunks {list(chunks)}"
-              f", re-tier before chunk {retier}; {steps} steps, "
-              f"{secs:.1f} s with the ranks' start; final mean rho "
-              f"{mine:.2f} vs one card's graph Rollout {ref_rho:.2f} at step "
-              f"{int(ref.step)} "
+              f", re-tier before chunk {retier}; {steps} steps; final mean "
+              f"rho {mine:.2f} vs one card's graph Rollout {ref_rho:.2f} at "
+              f"step {int(ref.step)} "
               f"({100 * share:.4f} %, within {100 * DENS_MEAN_RTOL:g} %; "
-              f"one card {steps / ref_s:.2f} steps/s, stats "
-              f"{sums.tolist()}, max speed {float(d.max_speed):.4f}); "
+              f"one card's stats {sums.tolist()}, max speed "
+              f"{float(d.max_speed):.4f}); "
               f"launches a rank {[_nonzero(c) for c in ranks]}; checks "
               + ("pass" if not bad else f"FAILED: {bad}"))
         del roll, ref
@@ -3417,7 +3047,7 @@ def main_ranks(n_ranks: int) -> int:
                                   NCCL_RESTRICTED_RANK, head="[nccl] dam1m")
     del state60
     torch.cuda.empty_cache()
-    phase_nccl_single(device, card, out_dir)
+    phase_nccl_single(device, card)
     torch.cuda.empty_cache()
     mark("the one-card references, restricted plans and D = 1")
 
@@ -3433,7 +3063,7 @@ def main_ranks(n_ranks: int) -> int:
 
     def add(into: dict, counts: dict) -> None:
         for k, v in counts.items():
-            into[k] += v
+            into[k] = into.get(k, 0) + v
 
     # the [tiers] checks and the runner's report their failures here, so
     # that one run shows every one of them; the script fails at its end
@@ -3451,19 +3081,15 @@ def main_ranks(n_ranks: int) -> int:
         state = os.path.join(out_dir, f"tiers_state_d{D}.pt")
         torch.save(tuple(t.cpu() for t in st[:3]), state)
         extra = {"tiers": {"n": n, "wall": wall, "state": state,
-                           "steps": NCCL_STEPS,
-                           "profile_steps": NCCL_PROFILE_STEPS,
-                           "trace_dir": out_dir}}
+                           "steps": NCCL_STEPS}}
         if D == n_ranks:
             extra["tiers"].update(plans=plans, plans_rank=TIER_RANK)
             extra.update({
                 "switch_steps": NCCL_SWITCH_STEPS,
                 "large": {"row": "dam2m", "n": n2, "wall": wall2,
-                          "settle": SCALE_SETTLE, "steps": SCALE_STEPS,
-                          "profile_steps": NCCL_PROFILE_STEPS,
-                          "trace_dir": out_dir},
+                          "settle": SCALE_SETTLE, "steps": SCALE_STEPS},
                 "cell": {"n": N_MAIN, "table": table, "steps": CELL_STEPS}})
-        ranks = phase_nccl(card, D, out_dir, extra)
+        ranks = phase_nccl(card, D, extra)
         for r in ranks:
             add(launches, r["graph_launches"])
         got = phase_tiers(card, D, ranks, n, failures)
@@ -3506,17 +3132,14 @@ def main_ranks(n_ranks: int) -> int:
          "replaces": KERNELS[k][2], "launches": launches[k],
          "launches_from": origin, "launches_compact_tier": compact[k],
          "max_abs_err": tier_kern[k][0], "ms": tier_kern[k][1],
-         "plain_ms": tier_kern[k][2], "bound_ms": tier_kern[k][3],
-         "bound_by": tier_kern[k][4], "library_ms": None,
+         "plain_ms": tier_kern[k][2], "library_ms": None,
          "measured_on": f"the compact tier's local set of rank {TIER_RANK} "
                         f"of D = {n_ranks}, dam1m, step {RANK_MARKS[-1]}",
-         "restricted_spawn_ms": restricted[k][0],
-         "restricted_spawn_bound_ms": restricted[k][1],
+         "restricted_spawn_ms": restricted[k],
          "launches_soak": soak[k],
          "soak_last_state": {
-             leg: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms"),
-                           figs[k])) for leg, figs in soak_kern.items()
-             if k in figs},
+             leg: dict(zip(("max_abs_err", "ms", "plain_ms"), figs[k]))
+             for leg, figs in soak_kern.items() if k in figs},
          **({"float64_witness": witnesses[k]} if k in witnesses else {})}
         for k in KERNELS]
     if any(r["launches"] <= 0 for r in report):
@@ -3573,26 +3196,21 @@ def main(argv=None) -> int:
         got = phase_main(device, card, KernelGeometry(**switches),
                          steps=SHORT_STEPS)
         short.update({k: v for k, v in got.items() if k in TC_FORMS and v})
-    graph_dir = os.path.join(build_dir, "chip_smoke_graph")
-    os.makedirs(graph_dir, exist_ok=True)
-    window = phase_graph(device, card, graph_dir)
-    phase_graph(device, card, graph_dir, geom=tc_geom)
+    phase_graph(device)
+    phase_graph(device, geom=tc_geom)
     fast = phase_fastpath(device, card)
     ranks, _ = phase_two_ranks(device, card)
     phase_cell(device, os.path.join(build_dir, "chip_smoke_cell"))
-    phase_backends(device, card, graph_dir, window)
+    phase_backends(device, card)
     phase_settle(device)
     tc_settle = phase_settle(device, geom=tc_geom)
     phase_settle(device, geom=KernelGeometry(seg=WITNESS_SEG))
     phase_settle(device, geom=KernelGeometry(**ALL_SWITCHES, seg=WITNESS_SEG))
     rho, tc_cli = phase_cli(device, os.path.join(build_dir, "chip_smoke_cli"))
 
-    scale_dir = os.path.join(build_dir, "chip_smoke_scale")
-    os.makedirs(scale_dir, exist_ok=True)
     scale_kern = phase_scale_kernels(device)
-    dam1m = phase_scale_rollout(device, card, "dam1m", scale_dir)
-    dam1m_tc = phase_scale_rollout(device, card, "dam1m", scale_dir,
-                                   geom=tc_geom)
+    dam1m = phase_scale_rollout(device, card, "dam1m")
+    dam1m_tc = phase_scale_rollout(device, card, "dam1m", geom=tc_geom)
     share = abs(dam1m_tc["mean_density"] - dam1m["mean_density"]) \
         / dam1m["mean_density"]
     print(f"[scale] dam1m mean rho at step {dam1m['step']}: every switch on "
@@ -3603,25 +3221,29 @@ def main(argv=None) -> int:
     if dam1m_tc["step"] != dam1m["step"] or not share <= DENS_MEAN_RTOL:
         raise AssertionError("dam1m: the tensor-core forms' mean density "
                              "left the default geometry's")
-    dam2m = phase_scale_rollout(device, card, "dam2m", scale_dir)
+    dam2m = phase_scale_rollout(device, card, "dam2m")
     blowup = phase_scale_blowup(device, card)
-    scale_cli = phase_scale_cli(device, os.path.join(scale_dir, "cli"))
+    scale_cli = phase_scale_cli(
+        device, os.path.join(build_dir, "chip_smoke_scale", "cli"))
     _, n1m, wall1m = SCALE_ROWS["dam1m"]
     fast1m = phase_fastpath(device, card, n1m, wall1m,
                             head="[scale] dam1m fastpath:")
     scale = [dam1m["launches"], dam1m_tc["launches"], dam2m["launches"],
              blowup, scale_cli, fast1m]
 
-    origin = {k: "phase 5 + sharded phases + [scale]" for k in SOLVE_KERNELS}
-    for k in SOLVE_KERNELS:
+    # the solve kernels of the default geometry and of every switch on
+    solve = [k for k in _launches(1) if k in KERNELS]
+    tc_solve = [k for k in _launches(1, geom=tc_geom) if k in KERNELS]
+    origin = {k: "phase 5 + sharded phases + [scale]" for k in solve}
+    for k in solve:
         launches[k] += fast[k] + ranks[k]
     launches["density_rho"] = rho + ranks["density_rho"]
     origin["density_rho"] = ("phase 7 + the two ranks' diagnostics + "
                              "[scale]'s diagnostics and runner")
-    for k in TC_SOLVE_KERNELS:
+    for k in tc_solve:
         launches[k] = tc_main[k] + tc_settle[k] + tc_cli[k]
         origin[k] = "phases 5-7 + [scale] dam1m"
-    for k in set(TC_FORMS) - set(TC_SOLVE_KERNELS):
+    for k in set(TC_FORMS) - set(tc_solve):
         launches[k] = short[k]
         origin[k] = f"phase 5 ({SHORT_STEPS}-step rollout)"
     for k in KERNELS:
@@ -3632,16 +3254,16 @@ def main(argv=None) -> int:
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
          "launches_from": origin[k], "max_abs_err": kern[k][0],
-         "ms": kern[k][1], "plain_ms": kern[k][2], "bound_ms": kern[k][3],
-         "bound_by": kern[k][4], "library_ms": None,
-         f"ms_step{SETTLED_STEP}": kern[k][5],
-         f"bound_ms_step{SETTLED_STEP}": kern[k][6],
-         "restricted_ms": restricted[k][0],
-         "restricted_bound_ms": restricted[k][1],
+         "ms": kern[k][1], "plain_ms": kern[k][2],
+         # the least time of pbfbench/work.py's flops (None for K1 rho)
+         "bound_ms": kern[k][3], "library_ms": None,
+         f"ms_step{SETTLED_STEP}": kern[k][4],
+         f"bound_ms_step{SETTLED_STEP}": kern[k][5],
+         "restricted_ms": restricted[k],
          "own_ms": {str(own): owns[own][k] for own in C2_OWNS},
          # the 1M dam break at step 60
          "ms_1m": scale_kern[k][1], "bound_ms_1m": scale_kern[k][2],
-         "bound_by_1m": scale_kern[k][3], "max_abs_err_1m": scale_kern[k][0]}
+         "max_abs_err_1m": scale_kern[k][0]}
         for k in KERNELS
     ]
     # finalize: once a step on every path that steps; bitwise the chain
