@@ -27,6 +27,16 @@ exits non-zero:
                non-finite stat on the dense backend with a NaN, an inf and
                (strict) a NaN velocity at a wall; the kernel's and the
                chain's ms beside the kernel's byte bound;
+     plan   — the plan kernels (csrc/pbf_plan.cu) against the plain plan
+               (cuda_pbf.build_plan_ref) on the same card tensors, every
+               WindowPlan field bit for bit: the sorted cell ids of the 80k
+               dam break at steps 0, 60 and 480 and of the 1M dam break at
+               step 60, at own 32, 64, 128 and 256, with rank 0 of D = 2's
+               restricted plans; the work table on 31,250 synthetic
+               chunks, stretched and not; a plan's ms in a graph against
+               the plain plan's; 240 graph steps of the 80k and the 1M dam
+               break from the seed-0 spawn bitwise the same rollout on the
+               plain plan;
   3. kernels — each kernel against its plain torch version on the same
                inputs, at the main path's shape, with errors and times: the
                FP32 kernels (csrc/pbf_window.cu) and the six tensor-core
@@ -36,10 +46,11 @@ exits non-zero:
                the scratch's counters back at 0, each lambda and project
                form beside the least time of work.py's flops for the pairs
                within h; then the same checks at own 32, 128 and 256 (step
-               60) with a 40-step rollout at each, and on restricted plans,
-               as rank 0 of two sees them (density forms on own keys plus
-               one ring, project forms on own keys), the masked chunks'
-               rows as JAX's rule writes them;
+               60) with a 40-step rollout at each, and on restricted plans
+               (each plan's kernels bitwise the plain plan's), as rank 0 of
+               two sees them (density forms on own keys plus one ring,
+               project forms on own keys), the masked chunks' rows as
+               JAX's rule writes them;
   4. oracle  — 3 window-backend steps against the all-pairs dense backend;
   5. main    — the 80k dam break rolled out 240 steps after a 240-step
                settle chunk (the Rollout replays its CUDA graph: the launch
@@ -107,8 +118,9 @@ one card each, a CUDA graph whose collectives replay with it, at the JAX
 package's multi-device configuration (benchmarks/bench_multichip.py:62-70,
 the 1M dam break). It exits non-zero when torch sees fewer cards. The nine
 forms against their plain versions on rank 1 of D = 4's restricted plans
-of that row; for D = 2 and D = 4, through launch.rollout_ranks: 3 steps
-against the single-card Stepper, the population at step 23 and the mean
+of that row (the plan and both restricted plans bitwise the plain plan's);
+for D = 2 and D = 4, through launch.rollout_ranks: 3 steps against the
+single-card Stepper, the population at step 23 and the mean
 density at steps 3, 23 and 243; then 240 graph steps bitwise 240 eager
 ShardedStepper steps; 20 graph steps under set_sync_debug_mode("error");
 the graph's steps/s and the line of bench_multichip.py's fields, also for
@@ -159,7 +171,9 @@ plans, at each other own and on the 1M dam break; the
 the finalize kernel's: its launches on the main paths (phase 5's
 rollouts, the fast path, the two ranks and phase 8's runs), bitwise the
 chain (max_abs_err 0), its ms and the chain's at 80k and 1M at both
-steps, and its byte bound (52 B a particle). The last line is
+steps, and its byte bound (52 B a particle); then the plan's two
+kernels', with their launches on the same paths and a plan's ms against
+the plain plan's at 80k and 1M. The last line is
 {"ok": true, "device": {...}}. Without a card, or without the package beside it, the
 script exits non-zero and prints no result.
 """
@@ -633,6 +647,181 @@ def phase_finalize(device) -> dict:
           f"{N_ORACLE}: {got}")
     if bad:
         raise AssertionError("finalize: " + "; ".join(bad))
+    return times
+
+
+@contextlib.contextmanager
+def _plain_plan():
+    """Inside the context the step, the sharded step and the diagnostics
+    build the plain plan (cuda_pbf.build_plan_ref, work_table_ref) on the
+    card, as the port did before csrc/pbf_plan.cu: the plan kernels'
+    yardstick."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    real = cuda_pbf.build_plan, cuda_pbf.work_table
+    cuda_pbf.build_plan = cuda_pbf.build_plan_ref
+    cuda_pbf.work_table = cuda_pbf.work_table_ref
+    try:
+        yield
+    finally:
+        cuda_pbf.build_plan, cuda_pbf.work_table = real
+
+
+def _plan_faults(tag: str, got, want) -> list[str]:
+    """The fields of plan (or table) `got` whose dtype, shape or bits are
+    not `want`'s."""
+    bad = []
+    for name, a, b in zip(getattr(want, "_fields", range(len(want))), got,
+                          want):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            bad.append(f"{tag}: {name} differs ({a.dtype} {tuple(a.shape)} "
+                       f"vs {b.dtype} {tuple(b.shape)})")
+    return bad
+
+
+def _check_plan(cfg, sorted_cid, keeps=(), tag: str = "") -> list[str]:
+    """The plan kernels against the plain plan on the same card tensor,
+    every WindowPlan field bit for bit, twice (the same bits again), each
+    call one launch of each kernel; then restrict_plan on each mask of
+    `keeps`, with the work table's kernel against the plain one. The
+    faults found."""
+    from pdb_sph_tpu_torch.ops import cuda_pbf
+
+    bad = []
+    before = dict(cuda_pbf.LAUNCHES)
+    got = cuda_pbf.build_plan(cfg, sorted_cid)
+    again = cuda_pbf.build_plan(cfg, sorted_cid)
+    done = {k: cuda_pbf.LAUNCHES[k] - before[k] for k in before}
+    if _nonzero(done) != {"plan": 2, "work_table": 2}:
+        bad.append(f"{tag}: two plans launched {_nonzero(done)}")
+    want = cuda_pbf.build_plan_ref(cfg, sorted_cid)
+    bad += _plan_faults(f"{tag} plan", got, want)
+    bad += _plan_faults(f"{tag} plan again", again, got)
+    for i, keep in enumerate(keeps):
+        r = cuda_pbf.restrict_plan(cfg, got, keep)
+        with _plain_plan():
+            r_want = cuda_pbf.restrict_plan(cfg, want, keep)
+        bad += _plan_faults(f"{tag} restricted {i}", r, r_want)
+    return bad
+
+
+def phase_plan(device) -> dict:
+    """The plan kernels (csrc/pbf_plan.cu) bit for bit against the plain
+    plan (_check_plan): on the sorted cell ids of the 80k dam break at
+    steps 0, 60 and 480 and of the 1M dam break at step 60, at own 32, 64,
+    128 and 256, with rank 0 of D = 2's restricted plans at 80k step 60;
+    the work table on 31,250 synthetic chunks (the 2M row's count) with
+    and without stretched segments and with empty chunks; each plan's ms
+    in a graph against the plain plan's; then a 240-step graph rollout of
+    the 80k and the 1M dam break from the seed-0 spawn, bitwise the same
+    rollout on the plain plan, with the launches of _launches. Returns
+    {n: (kernel ms, plain ms)} at step 60 in the default geometry."""
+    import dataclasses
+
+    import numpy as np
+
+    import pdb_sph_tpu_torch as pbf
+    from pdb_sph_tpu_torch.core.step import sort_cells
+    from pdb_sph_tpu_torch.geometry import KernelGeometry
+    from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    bad, times = [], {}
+    _, n1m, wall1m = SCALE_ROWS["dam1m"]
+    rows = ((N_MAIN, 2.0, (0, SETTLE_STEPS, SETTLED_STEP)),
+            (n1m, wall1m, (SETTLE_STEPS,)))
+    for n, wall, steps in rows:
+        cfg = pbf.default_config(n=n, wall=wall)
+        rollout = pbf.make_rollout(cfg, "window", SETTLE_STEPS,
+                                   device=device)
+        state = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+        for step in steps:
+            if step > int(state.step):
+                state = rollout(state, step - int(state.step))
+            cid = hashgrid.cell_ids(cfg, state.x)
+            for own in (32, 64, 128, 256):
+                c = dataclasses.replace(cfg, geom=KernelGeometry(own=own))
+                sorted_cid, _ = sort_cells(c, cid)
+                keeps = ()
+                if n == N_MAIN and step == SETTLE_STEPS:
+                    b = sharded.initial_bounds(c, 2, state=state)
+                    keeps = sharded.chunk_keep(c, sorted_cid, int(b[0]),
+                                               int(b[1]))
+                bad += _check_plan(c, sorted_cid, keeps,
+                                   f"n {n} step {step} own {own}")
+            if step == SETTLE_STEPS:
+                sorted_cid, _ = sort_cells(cfg, cid)
+                times[n] = (
+                    _graph_ms(lambda: cuda_pbf.build_plan(cfg, sorted_cid)),
+                    _graph_ms(lambda: cuda_pbf.build_plan_ref(cfg,
+                                                              sorted_cid)))
+                print(f"[plan] dam n={n} step {step}: kernels "
+                      f"{times[n][0]:.4f} ms a plan in a graph, the plain "
+                      f"plan {times[n][1]:.4f} ms "
+                      f"({times[n][1] / times[n][0]:.1f}x)")
+        print(f"[plan] dam n={n} steps {list(steps)}, own 32-256"
+              + (", rank 0 of D = 2's restricted plans at step "
+                 f"{SETTLE_STEPS}" if n == N_MAIN else "")
+              + ": every field bitwise the plain plan's: "
+              + str(not any(f"n {n} " in b for b in bad)))
+        del rollout, state
+        torch.cuda.empty_cache()
+
+    cfg = pbf.default_config(n=N_MAIN)
+    chunks, seg = 31_250, cfg.geom.seg
+    rng = np.random.default_rng(0)
+    for scale in (4, 40):
+        cand = rng.integers(0, scale * seg, size=chunks)
+        cand[rng.choice(chunks, 500, replace=False)] = 0
+        cand[7] = 200_000
+        cand = torch.from_numpy(cand).to(device)
+        got = cuda_pbf.work_table(cfg, cand)
+        want = cuda_pbf.work_table_ref(cfg, cand)
+        bad += _plan_faults(f"table {chunks} chunks to {scale} seg", got,
+                            want)
+        print(f"[plan] work table of {chunks} synthetic chunks (up to "
+              f"{scale} x seg candidates, 500 empty): seg_len "
+              f"{int(got[0])} (seg {seg}), {int(got[1][-1])} items, "
+              f"bitwise the plain table: "
+              f"{not any(f'to {scale} seg' in b for b in bad)}")
+
+    for n, wall, _ in rows:
+        cfg = pbf.default_config(n=n, wall=wall)
+        st = pbf.spawn(cfg, "dam_break", seed=0, device=device)
+        outs = []
+        for plain in (False, True):
+            cuda_pbf.reset_launches()
+            with _plain_plan() if plain else contextlib.nullcontext():
+                rollout = pbf.make_rollout(cfg, "window", ROLLOUT_STEPS,
+                                           with_stats=True, device=device)
+                out, stats = rollout(st)
+            torch.cuda.synchronize()
+            launches = dict(cuda_pbf.LAUNCHES)
+            outs.append((out, stats,
+                         int(rollout.stepper.counters["plan_candidates"])))
+            want = _launches(ROLLOUT_STEPS + WARMUP_STEPS)
+            if plain:
+                want = {k: v for k, v in want.items()
+                        if k not in ("plan", "work_table")}
+            try:
+                _check_launches(f"[plan] n {n} plain {plain}", launches,
+                                want)
+            except AssertionError as e:
+                bad.append(str(e))
+            del rollout
+        (a, sa, ca), (b, sb, cb) = outs
+        same = all(torch.equal(x, y) for x, y in zip(a, b)) \
+            and torch.equal(sa, sb) and ca == cb
+        print(f"[plan] dam n={n}: {ROLLOUT_STEPS} graph steps from the "
+              f"seed-0 spawn on the plan kernels bitwise the same rollout on "
+              f"the plain plan (state, stats {sa.tolist()}, plan candidates "
+              f"{ca}): {same}")
+        if not same:
+            bad.append(f"n {n}: the rollout left the plain plan's bits")
+        del outs, a, b, st
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("plan: " + "; ".join(bad))
     return times
 
 
@@ -1181,13 +1370,16 @@ def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def _launches(steps: int, rho: int = 0, geom=None) -> dict:
+def _launches(steps: int, rho: int = 0, geom=None, ranks: int = 1) -> dict:
     """The kernel launches of `steps` steps in `geom` (None: the default
-    geometry), by LAUNCHES' keys, the ones it never makes left out: its
-    density and project kernels SOLVER_ITERS times a step, finalize once a
-    step and the rho kernel `rho` times (once a diagnostic record). A
-    graph's eager warm-up step counts among the steps (WARMUP_STEPS). The
-    one place that says what a step launches."""
+    geometry) on a rank of `ranks`, by LAUNCHES' keys, the ones it never
+    makes left out: its density and project kernels SOLVER_ITERS times a
+    step, finalize once a step, the rho kernel `rho` times (once a
+    diagnostic record), the plan's two kernels once a step and once a
+    diagnostic record, and at ranks > 1 the work table's twice more a step
+    (the density and the project pass's restricted plans). A graph's
+    eager warm-up step counts among the steps (WARMUP_STEPS). The one
+    place that says what a step launches."""
     from pdb_sph_tpu_torch.geometry import KernelGeometry
 
     geom = geom or KernelGeometry()
@@ -1198,7 +1390,8 @@ def _launches(steps: int, rho: int = 0, geom=None) -> dict:
                if geom.mxu_proj or geom.mxu_sum else "project")
     return _nonzero({density: SOLVER_ITERS * steps,
                      project: SOLVER_ITERS * steps, "finalize": steps,
-                     "density_rho": rho})
+                     "density_rho": rho, "plan": steps + rho,
+                     "work_table": steps + rho + 2 * steps * (ranks > 1)})
 
 
 def _check_launches(tag: str, launches: dict, want: dict) -> None:
@@ -1431,11 +1624,16 @@ def phase_restricted(device, state60, cfg=None, D: int = 2, rank: int = 0,
                                         int(b[rank + 1]))
     plan_d = cuda_pbf.restrict_plan(cfg, plan, keep_d)
     plan_p = cuda_pbf.restrict_plan(cfg, plan, keep_p)
+    bad = _check_plan(cfg, sorted_cid, (keep_d, keep_p),
+                      f"rank {rank} of {D}")
+    if bad:
+        raise AssertionError(f"{head} restricted plans: {bad}")
     print(f"{head} restricted: rank {rank} of {D}, n={n} wall={cfg.wall} "
           f"grid_width {cfg.grid_width}, zx-keys [{b[rank]}, "
           f"{b[rank + 1]}): {int(keep_d.sum())} of {keep_d.numel()} chunks "
           f"kept for the density forms, {int(keep_p.sum())} for the project "
-          "forms")
+          "forms; the plan and both restricted plans bitwise the plain "
+          "plan's")
     tag = " restricted:"
     fp, d_k = _fp32_kernels(cfg, p4, plan_d, n, SETTLE_STEPS, 0,
                             plan_p=plan_p, tag=tag, head=head)
@@ -1640,7 +1838,8 @@ def phase_two_ranks(device, card: str, cfg=None, D: int = 2,
                                  "differs from the single device's")
     for r in ranks:
         _check_launches(f"{head} D={D}", r,
-                        _launches(marks[-1] + warm_steps, rho=len(chunks)))
+                        _launches(marks[-1] + warm_steps, rho=len(chunks),
+                                  ranks=D))
     return launches, got[len(RANK_CHUNKS) - 1][0]
 
 
@@ -2532,7 +2731,7 @@ def phase_nccl(card: str, D: int, extra: dict | None = None) -> list[dict]:
         raise AssertionError(f"{head}: the graph left the eager loop's bits")
     for r in ranks:
         _check_launches(f"{head} graph", r["graph_launches"],
-                        _launches(NCCL_STEPS))
+                        _launches(NCCL_STEPS, ranks=D))
     b = r0["bench"]
     if any(b["overflows"]) or b["n_escaped"] or b["nan"] \
             or sum(b["per_shard_active"]) != n:
@@ -2600,7 +2799,8 @@ def phase_tiers(card: str, D: int, ranks: list[dict], n: int,
         a, b = t["spawn"], t["compact"]
         if not (b["slots"] < a["slots"] and b["peak_gib"] < a["peak_gib"]):
             bad.append(f"rank {r}: the compact tier is not smaller")
-        if _nonzero(b["launches"]) != _launches(steps + WARMUP_STEPS):
+        if _nonzero(b["launches"]) != _launches(steps + WARMUP_STEPS,
+                                                ranks=D):
             bad.append(f"rank {r}: compact launches {b['launches']}")
     for name in ("spawn", "compact"):
         st = torch.tensor(r0[name]["stats"])
@@ -2685,7 +2885,8 @@ def _check_switches(card: str, ranks: list[dict]) -> None:
                 or torch.tensor(s["diag"])[:, 1:].sum():
             raise AssertionError(f"[nccl] {name}: stats or density")
         want = _launches(NCCL_SWITCH_STEPS + WARMUP_STEPS,
-                         geom=KernelGeometry(**s["switches"]))
+                         geom=KernelGeometry(**s["switches"]),
+                         ranks=len(ranks))
         for r in ranks:
             _check_launches(f"[nccl] {name}", r["switches"][name]["launches"],
                             want)
@@ -2964,7 +3165,7 @@ def phase_soak(device, card: str, out_dir: str, failures: list
             try:
                 _check_launches(f"{head} rank {r}", counts,
                                 _launches(steps + WARMUP_STEPS * tiers,
-                                          rho=len(chunks)))
+                                          rho=len(chunks), ranks=D))
             except AssertionError as e:
                 bad.append(str(e))
             for k, v in counts.items():
@@ -3184,6 +3385,7 @@ def main(argv=None) -> int:
     card = phase_device()
     phase_build()
     fin = phase_finalize(device)
+    plan_ms = phase_plan(device)
     kern, state60 = phase_kernels(device)
     owns = phase_c2(device, state60)
     restricted = phase_restricted(device, state60)
@@ -3287,6 +3489,25 @@ def main(argv=None) -> int:
         "plain_ms_1m": fin[(n1m, SETTLE_STEPS)][1],
         "bound_ms_1m": fin[(n1m, SETTLE_STEPS)][2], "bound_by_1m": "bytes",
         f"ms_1m_step{SETTLED_STEP}": fin[(n1m, SETTLED_STEP)][0]})
+    # the plan's two kernels: once a step and a diagnostic record on every
+    # path that steps the window backend; bitwise the plain plan
+    # (phase_plan raises otherwise); ms of one plan, both kernels
+    for kernel, key in (("plan_windows_kernel", "plan"),
+                        ("work_table_kernel", "work_table")):
+        report.append({
+            "name": kernel, "route": "cuda",
+            "source": "pdb_sph_tpu_torch/csrc/pbf_plan.cu",
+            "replaces": "none: the JAX package's build_plan and "
+                        "restrict_plan are plain XLA "
+                        "(pdb_sph_tpu/ops/pallas_pbf.py:101-263)",
+            "launches": sum(run.get(key, 0) for run in fin_runs),
+            "launches_from": "phase 5's two geometries, the fast paths, "
+                             "the two ranks, [scale]'s rollouts, blowup "
+                             "and runner",
+            "max_abs_err": 0.0, "plan_ms": plan_ms[N_MAIN][0],
+            "plain_plan_ms": plan_ms[N_MAIN][1], "bound_by": "latency",
+            "library_ms": None, "plan_ms_1m": plan_ms[n1m][0],
+            "plain_plan_ms_1m": plan_ms[n1m][1]})
     if any(r["launches"] <= 0 for r in report):
         raise AssertionError(f"a kernel was not launched: {report}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s from the start of "

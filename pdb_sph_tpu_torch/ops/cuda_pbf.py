@@ -42,7 +42,10 @@ segment), so the CPU tests can hold the split against the unsplit sum.
 Each pass is a wrapper that dispatches on the tensor's device: a CPU tensor
 goes to the plain torch version beside it (`*_ref`), a CUDA tensor launches
 the hand-written kernel, or raises: `csrc/pbf_window.cu` in the default
-geometry, `csrc/pbf_tc.cu` when a switch of the pass is on. `LAUNCHES`
+geometry, `csrc/pbf_tc.cu` when a switch of the pass is on. The plan
+dispatches the same way: `build_plan` and `work_table` launch the two
+kernels of `csrc/pbf_plan.cu` on a card and run `build_plan_ref` and
+`work_table_ref` on the CPU, with the same fields bit for bit. `LAUNCHES`
 counts the kernel launches of each wrapper and tensor-core form, so a run
 can show that its main path went through the kernels; a launch captured
 into a CUDA graph (`captured_launches`) counts once per replay
@@ -75,11 +78,13 @@ NUM_WINDOWS = 9
 # Kernel launches per wrapper since the last reset_launches(); the plain
 # versions never count. The tensor-core forms count per instantiation of
 # density_tc_kernel<rd2, sum> and project_tc_kernel<proj, sum>; "finalize"
-# is ops/collide.finalize's kernel (csrc/pbf_finalize.cu).
+# is ops/collide.finalize's kernel (csrc/pbf_finalize.cu); "plan" and
+# "work_table" are build_plan's and work_table's (csrc/pbf_plan.cu).
 LAUNCHES = {"density_lambda": 0, "density_rho": 0, "project": 0,
             "density_tc_rd2": 0, "density_tc_sum": 0, "density_tc_rd2_sum": 0,
             "project_tc_proj": 0, "project_tc_sum": 0,
-            "project_tc_proj_sum": 0, "finalize": 0}
+            "project_tc_proj_sum": 0, "finalize": 0, "plan": 0,
+            "work_table": 0}
 
 # (own rows x candidates) pair elements per batch of the plain versions: a
 # batch is a run of consecutive chunks padded to its longest one
@@ -217,8 +222,9 @@ def window_offsets(w: int, device: torch.device) -> torch.Tensor:
         dtype=torch.int32, device=device)
 
 
-def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
-    """sorted_cid: (n_pad,) int32 sorted cell ids, padding = num_nb_cells.
+def build_plan_ref(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
+    """The plain torch plan. sorted_cid: (n_pad,) int32 sorted cell ids,
+    padding = num_nb_cells.
 
     Windows follow pdb_sph_tpu/ops/pallas_pbf.py:101-234 without its
     quantisation: the chunk's cell span [c_first, c_last] is taken from its
@@ -254,12 +260,52 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     start = torch.where(is_pad, torch.zeros_like(start), start)
     end = torch.where(is_pad, torch.zeros_like(end), end)
     ranges = torch.stack([start, end], dim=-1).contiguous()
-    cand = (end - start).sum(dim=1)
-    total = cand.sum(dtype=torch.int64)
-    seg_len, seg_prefix = work_table(cfg, cand, total)
+    seg_len, seg_prefix, total = work_table_ref(cfg, (end - start).sum(dim=1))
     return WindowPlan(ranges=ranges,
                       n_overflow=torch.zeros((), dtype=torch.int32,
                                              device=dev),
+                      seg_prefix=seg_prefix, seg_len=seg_len,
+                      n_candidates=total)
+
+
+def _plan_library(t: torch.Tensor):
+    """The kernel library for a plan on `t`'s card; raise for a device
+    with no kernel."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no plan kernel for device {t.device}")
+    from ..utils.cuda_build import load_kernels
+    return load_kernels()
+
+
+def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
+    """The step's window plan of sorted_cid, (n_pad,) int32 sorted cell ids
+    with padding = num_nb_cells. CPU: build_plan_ref. CUDA: the two kernels
+    of `csrc/pbf_plan.cu`, the same fields bit for bit, built on the device
+    with no host read; each counts one launch, under LAUNCHES["plan"] and
+    LAUNCHES["work_table"]. Any other device raises."""
+    if sorted_cid.device.type == "cpu":
+        return build_plan_ref(cfg, sorted_cid)
+    kernels = _plan_library(sorted_cid)
+    if sorted_cid.dtype != torch.int32 or sorted_cid.dim() != 1 \
+            or not sorted_cid.is_contiguous():
+        raise ValueError("sorted_cid must be contiguous (n_pad,) int32, got "
+                         f"{tuple(sorted_cid.shape)} {sorted_cid.dtype}")
+    own = cfg.geom.own
+    n_pad = sorted_cid.shape[0]
+    chunks = n_pad // own
+    dev = sorted_cid.device
+    ranges = torch.empty((chunks, NUM_WINDOWS, 2), dtype=torch.int32,
+                         device=dev)
+    cand = torch.empty((chunks,), dtype=torch.int64, device=dev)
+    code = kernels.lib.launch_plan_windows(
+        sorted_cid.data_ptr(), n_pad, chunks, own, cfg.num_nb_cells,
+        cfg.nb_grid_width, ranges.data_ptr(), cand.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(code, "launch_plan_windows")
+    count_launch("plan", "launch_plan_windows")
+    n_overflow = torch.empty((), dtype=torch.int32, device=dev)
+    seg_len, seg_prefix, total = _work_table_kernel(cfg, cand, n_overflow)
+    return WindowPlan(ranges=ranges, n_overflow=n_overflow,
                       seg_prefix=seg_prefix, seg_len=seg_len,
                       n_candidates=total)
 
@@ -280,27 +326,24 @@ def restrict_plan(cfg: SimConfig, plan: WindowPlan,
                          f"{tuple(keep.shape)}")
     ranges = torch.where(keep[:, None, None], plan.ranges,
                          torch.zeros_like(plan.ranges))
-    cand = (ranges[..., 1] - ranges[..., 0]).sum(dim=1)
-    total = cand.sum(dtype=torch.int64)
-    seg_len, seg_prefix = work_table(cfg, cand, total)
+    seg_len, seg_prefix, total = work_table(
+        cfg, (ranges[..., 1] - ranges[..., 0]).sum(dim=1))
     return WindowPlan(ranges=ranges, n_overflow=plan.n_overflow,
                       seg_prefix=seg_prefix, seg_len=seg_len,
                       n_candidates=total)
 
 
-def work_table(cfg: SimConfig, cand: torch.Tensor,
-               total: torch.Tensor | None = None):
-    """(seg_len () int32, seg_prefix (chunks + 1,) int32) for chunks of
-    `cand` candidates each, on the device, with no host read; `total`,
-    their int64 sum, is computed here unless the caller has it.
+def work_table_ref(cfg: SimConfig, cand: torch.Tensor):
+    """The plain torch work table: (seg_len () int32, seg_prefix (chunks +
+    1,) int32, total () int64) for chunks of `cand` candidates each, on the
+    device, with no host read; total is their sum.
 
     seg_len is the geometry's `seg` unless the candidates would need more
     than ITEMS_PER_CHUNK * chunks items; then it is the least length that
     fits: sum(max(1, ceil(cand / L))) <= chunks + total / L <= capacity."""
     chunks = cand.shape[0]
     spare = ITEMS_PER_CHUNK * chunks - chunks  # items beyond one a chunk
-    if total is None:
-        total = cand.sum(dtype=torch.int64)
+    total = cand.sum(dtype=torch.int64)
     seg_len = ((total + (spare - 1)) // spare).clamp_(min=cfg.geom.seg)
     seg_len = seg_len.to(torch.int32)
     # ceil(cand / seg_len), and one item for a chunk without candidates
@@ -308,7 +351,43 @@ def work_table(cfg: SimConfig, cand: torch.Tensor,
     seg_prefix = torch.zeros((chunks + 1,), dtype=torch.int32,
                              device=cand.device)
     torch.cumsum(items, 0, dtype=torch.int32, out=seg_prefix[1:])
-    return seg_len, seg_prefix
+    return seg_len, seg_prefix, total
+
+
+def _work_table_kernel(cfg: SimConfig, cand: torch.Tensor,
+                       n_overflow: torch.Tensor | None = None):
+    """work_table's kernel on a card; also writes the 0 of `n_overflow`,
+    a () int32, when given."""
+    kernels = _plan_library(cand)
+    if cand.dim() != 1 or not cand.is_contiguous() or cand.numel() < 1:
+        raise ValueError(f"cand must be contiguous (chunks,), chunks >= 1, "
+                         f"got {tuple(cand.shape)}")
+    cand = cand.to(torch.int64)
+    chunks = cand.shape[0]
+    dev = cand.device
+    seg_len = torch.empty((), dtype=torch.int32, device=dev)
+    seg_prefix = torch.empty((chunks + 1,), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    code = kernels.lib.launch_work_table(
+        cand.data_ptr(), chunks, cfg.geom.seg,
+        ITEMS_PER_CHUNK * chunks - chunks,
+        seg_len.data_ptr(), seg_prefix.data_ptr(), total.data_ptr(),
+        None if n_overflow is None else n_overflow.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(code, "launch_work_table")
+    count_launch("work_table", "launch_work_table")
+    return seg_len, seg_prefix, total
+
+
+def work_table(cfg: SimConfig, cand: torch.Tensor):
+    """(seg_len () int32, seg_prefix (chunks + 1,) int32, total () int64)
+    for chunks of `cand` candidates each (work_table_ref), on the device,
+    with no host read. CPU: work_table_ref. CUDA: `csrc/pbf_plan.cu`'s
+    work_table_kernel, one launch under LAUNCHES["work_table"]. Any other
+    device raises."""
+    if cand.device.type == "cpu":
+        return work_table_ref(cfg, cand)
+    return _work_table_kernel(cfg, cand)
 
 
 # ---------------------------------------------------------------------------

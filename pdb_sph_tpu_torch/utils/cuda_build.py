@@ -57,6 +57,11 @@ SIGNATURES = {
     #  keep, damp, strict, stream): csrc/pbf_finalize.cu
     "launch_finalize": (_P, _I, _P, _I, _P, _P, _P, _I, _F, _F, _F, _F, _I,
                         _P),
+    # (sorted_cid, n_pad, chunks, own, ncells, width, ranges, cand, stream)
+    # and (cand, chunks, seg, spare, seg_len, seg_prefix, total, overflow,
+    # stream): csrc/pbf_plan.cu
+    "launch_plan_windows": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "launch_work_table": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 
@@ -117,11 +122,17 @@ def ptxas_registers(log: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             m = re.search(r"(window_kernel|density_tc_kernel|"
-                          r"project_tc_kernel|finalize_kernel)I(.*?)EEv",
-                          entry.group(1))
-            name = (f"{m.group(1)}<"
-                    + ",".join(re.findall(r"(?:Lb|Li|E)(\d+)E", m.group(2)))
-                    + ">") if m else entry.group(1)
+                          r"project_tc_kernel|finalize_kernel|"
+                          r"plan_windows_kernel|work_table_kernel)"
+                          r"(?:I(.*?)EEv)?", entry.group(1))
+            if m is None:
+                name = entry.group(1)
+            elif m.group(2) is None:
+                name = m.group(1)
+            else:
+                name = (f"{m.group(1)}<"
+                        + ",".join(re.findall(r"(?:Lb|Li|E)(\d+)E",
+                                              m.group(2))) + ">")
             spill = 0
         stores = re.search(r"(\d+) bytes spill stores", line)
         if stores:

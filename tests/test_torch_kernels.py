@@ -191,8 +191,9 @@ def test_signatures_match_the_c_launchers():
     """Every launcher's ctypes argtypes follow its C declaration, argument
     for argument, so a pointer is never cut to an int; the FP32 launchers
     take the evaluated-pair counter, a pointer, just before the stream,
-    the tensor-core ones end on their last float constant, and finalize's
-    on its last float constant and the strict switch."""
+    the tensor-core ones end on their last float constant, finalize's
+    on its last float constant and the strict switch, and the plan's two
+    on their output pointers."""
     import ctypes
 
     from pdb_sph_tpu_torch.utils import cuda_build
@@ -202,6 +203,8 @@ def test_signatures_match_the_c_launchers():
         tail = args[-3:]
         if name == "launch_finalize":
             assert tail == (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+        elif name in ("launch_plan_windows", "launch_work_table"):
+            assert tail == (ctypes.c_void_p,) * 3, name
         elif name.endswith("_tc"):
             assert tail[1:] == (ctypes.c_float, ctypes.c_void_p), name
         else:

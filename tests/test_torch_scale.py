@@ -209,9 +209,10 @@ def test_work_table_stretches_segments_at_the_2m_chunk_count():
     want_items = np.maximum(1, -(-cand // want_len))
     assert want_items.sum() <= cuda_pbf.ITEMS_PER_CHUNK * chunks
 
-    seg_len, seg_prefix = cuda_pbf.work_table(
+    seg_len, seg_prefix, total = cuda_pbf.work_table(
         cfg, torch.from_numpy(cand.astype(np.int32)))
     assert seg_len.dtype == seg_prefix.dtype == torch.int32
+    assert int(total) == int(cand.sum())
     assert int(seg_len) == want_len
     np.testing.assert_array_equal(
         seg_prefix.numpy(), np.concatenate([[0], np.cumsum(want_items)]))

@@ -269,9 +269,11 @@ def test_restrict_plan_masks_the_chunks_jax_masks():
             k = keep.numpy()
             assert torch.equal(r.ranges[k], plan.ranges[k])
             assert not rc[~k].any() and 0 < k.sum() < k.size
-            seg_len, prefix = cuda_pbf.work_table(cfg, torch.from_numpy(rc))
+            seg_len, prefix, total = cuda_pbf.work_table(
+                cfg, torch.from_numpy(rc))
             assert torch.equal(r.seg_prefix, prefix)
             assert torch.equal(r.seg_len, seg_len)
+            assert torch.equal(r.n_candidates, total)
 
 
 FORMS = [dict(), dict(mxu_rd2=True, mxu_sum=True), dict(mxu_proj=True),

@@ -150,9 +150,10 @@ def test_work_table_takes_longer_segments_at_capacity(seg):
     capacity, so every candidate still lies in an item."""
     cfg = default_config(n=64 * 5, geom=KernelGeometry(seg=seg))
     cand = torch.tensor([0, 3, seg * 100, 7 * seg + 1, 1], dtype=torch.int32)
-    seg_len, prefix = cuda_pbf.work_table(cfg, cand)
+    seg_len, prefix, got_total = cuda_pbf.work_table(cfg, cand)
     capacity = cuda_pbf.ITEMS_PER_CHUNK * 5
     total = int(cand.long().sum())
+    assert got_total.dtype == torch.int64 and int(got_total) == total
     assert int(seg_len) == max(seg, -(-total // (capacity - 5))) > seg
     items = torch.clamp(-(-cand.long() // int(seg_len)), min=1)
     assert prefix.tolist() == [0] + items.cumsum(0).tolist()
