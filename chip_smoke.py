@@ -33,10 +33,11 @@ exits non-zero:
                dam break at steps 0, 60 and 480 and of the 1M dam break at
                step 60, at own 32, 64, 128 and 256, with rank 0 of D = 2's
                restricted plans; the work table on 31,250 synthetic
-               chunks, stretched and not; a plan's ms in a graph against
-               the plain plan's; 240 graph steps of the 80k and the 1M dam
-               break from the seed-0 spawn bitwise the same rollout on the
-               plain plan;
+               chunks, stretched and not, with its work-item counters; a
+               plan's ms in a graph against the plain plan's; 240 graph
+               steps of the 80k and the 1M dam break from the seed-0 spawn
+               bitwise the same rollout on the plain plan, with the same
+               counters;
   3. kernels — each kernel against its plain torch version on the same
                inputs, at the main path's shape, with errors and times: the
                FP32 kernels (csrc/pbf_window.cu) and the six tensor-core
@@ -679,24 +680,44 @@ def _plan_faults(tag: str, got, want) -> list[str]:
     return bad
 
 
+ITEM_COUNTERS = ("pair_items", "chunk_items_max")
+
+
+def _item_counters(device) -> dict:
+    """The work table's two counters, zeroed, as Stepper.counters holds
+    them."""
+    return {k: torch.zeros((), dtype=torch.int64, device=device)
+            for k in ITEM_COUNTERS}
+
+
+def _counter_faults(tag: str, got: dict, want: dict) -> list[str]:
+    """The counters of `got` whose value is not `want`'s."""
+    return [f"{tag}: counter {k} {int(got[k])} against {int(want[k])}"
+            for k in want if int(got[k]) != int(want[k])]
+
+
 def _check_plan(cfg, sorted_cid, keeps=(), tag: str = "") -> list[str]:
     """The plan kernels against the plain plan on the same card tensor,
     every WindowPlan field bit for bit, twice (the same bits again), each
-    call one launch of each kernel; then restrict_plan on each mask of
+    call one launch of each kernel, the second adding into the work-item
+    counters as the plain plan does; then restrict_plan on each mask of
     `keeps`, with the work table's kernel against the plain one. The
     faults found."""
     from pdb_sph_tpu_torch.ops import cuda_pbf
 
     bad = []
     before = dict(cuda_pbf.LAUNCHES)
+    counted = _item_counters(sorted_cid.device)
     got = cuda_pbf.build_plan(cfg, sorted_cid)
-    again = cuda_pbf.build_plan(cfg, sorted_cid)
+    again = cuda_pbf.build_plan(cfg, sorted_cid, counted)
     done = {k: cuda_pbf.LAUNCHES[k] - before[k] for k in before}
     if _nonzero(done) != {"plan": 2, "work_table": 2}:
         bad.append(f"{tag}: two plans launched {_nonzero(done)}")
-    want = cuda_pbf.build_plan_ref(cfg, sorted_cid)
+    plain = _item_counters(sorted_cid.device)
+    want = cuda_pbf.build_plan_ref(cfg, sorted_cid, plain)
     bad += _plan_faults(f"{tag} plan", got, want)
     bad += _plan_faults(f"{tag} plan again", again, got)
+    bad += _counter_faults(f"{tag} plan", counted, plain)
     for i, keep in enumerate(keeps):
         r = cuda_pbf.restrict_plan(cfg, got, keep)
         with _plain_plan():
@@ -711,11 +732,13 @@ def phase_plan(device) -> dict:
     steps 0, 60 and 480 and of the 1M dam break at step 60, at own 32, 64,
     128 and 256, with rank 0 of D = 2's restricted plans at 80k step 60;
     the work table on 31,250 synthetic chunks (the 2M row's count) with
-    and without stretched segments and with empty chunks; each plan's ms
-    in a graph against the plain plan's; then a 240-step graph rollout of
-    the 80k and the 1M dam break from the seed-0 spawn, bitwise the same
-    rollout on the plain plan, with the launches of _launches. Returns
-    {n: (kernel ms, plain ms)} at step 60 in the default geometry."""
+    and without stretched segments and with empty chunks, the work-item
+    counters with it; each plan's ms in a graph against the plain plan's;
+    then a 240-step graph rollout of the 80k and the 1M dam break from the
+    seed-0 spawn, bitwise the same rollout on the plain plan, with the
+    same plan-candidate and work-item counters and the launches of
+    _launches. Returns {n: (kernel ms, plain ms)} at step 60 in the
+    default geometry."""
     import dataclasses
 
     import numpy as np
@@ -775,14 +798,18 @@ def phase_plan(device) -> dict:
         cand[rng.choice(chunks, 500, replace=False)] = 0
         cand[7] = 200_000
         cand = torch.from_numpy(cand).to(device)
-        got = cuda_pbf.work_table(cfg, cand)
-        want = cuda_pbf.work_table_ref(cfg, cand)
+        counted, plain = _item_counters(device), _item_counters(device)
+        got = cuda_pbf.work_table(cfg, cand, counted)
+        want = cuda_pbf.work_table_ref(cfg, cand, plain)
         bad += _plan_faults(f"table {chunks} chunks to {scale} seg", got,
                             want)
+        bad += _counter_faults(f"table {chunks} chunks to {scale} seg",
+                               counted, plain)
         print(f"[plan] work table of {chunks} synthetic chunks (up to "
               f"{scale} x seg candidates, 500 empty): seg_len "
               f"{int(got[0])} (seg {seg}), {int(got[1][-1])} items, "
-              f"bitwise the plain table: "
+              f"{int(counted['chunk_items_max'])} the most of one chunk, "
+              f"bitwise the plain table and its counters: "
               f"{not any(f'to {scale} seg' in b for b in bad)}")
 
     for n, wall, _ in rows:
@@ -797,8 +824,9 @@ def phase_plan(device) -> dict:
                 out, stats = rollout(st)
             torch.cuda.synchronize()
             launches = dict(cuda_pbf.LAUNCHES)
-            outs.append((out, stats,
-                         int(rollout.stepper.counters["plan_candidates"])))
+            outs.append((out, stats, {
+                k: int(rollout.stepper.counters[k])
+                for k in ("plan_candidates", *ITEM_COUNTERS)}))
             want = _launches(ROLLOUT_STEPS + WARMUP_STEPS)
             if plain:
                 want = {k: v for k, v in want.items()
@@ -814,7 +842,7 @@ def phase_plan(device) -> dict:
             and torch.equal(sa, sb) and ca == cb
         print(f"[plan] dam n={n}: {ROLLOUT_STEPS} graph steps from the "
               f"seed-0 spawn on the plan kernels bitwise the same rollout on "
-              f"the plain plan (state, stats {sa.tolist()}, plan candidates "
+              f"the plain plan (state, stats {sa.tolist()}, counters "
               f"{ca}): {same}")
         if not same:
             bad.append(f"n {n}: the rollout left the plain plan's bits")

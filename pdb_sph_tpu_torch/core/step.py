@@ -46,6 +46,10 @@ What the program measures of itself, for a profiler's user (utils/timing):
 - `Stepper.counters["pair_evals"]`: the (own row, candidate) pairs that the
   density passes' FP32 kernels evaluated after their cull, on the card
   (csrc/pbf_window.cu; the plain versions count nothing);
+- `Stepper.counters["pair_items"]` and `["chunk_items_max"]`: the pair
+  kernels' work items of each step's plan, and the most items of one
+  chunk, summed over the steps (written by the work table's kernel,
+  csrc/pbf_plan.cu, or its plain version);
 - while a torch.profiler session records, the spans `pbf.rollout` of each
   Rollout call and, inside it, `pbf.rollout.capture` (first call),
   `.zero`, `.copy_in`, `.replay` and `.copy_out`, and the counters over the
@@ -121,7 +125,9 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
     the plan's candidate pairs, own rows x candidates, are added into
     `counters["plan_candidates"]` (a 0-dim int64 tensor) when given, and
     the density kernels' evaluated pairs into `counters["pair_evals"]`
-    when that is there (cuda_pbf.solve)."""
+    when that is there (cuda_pbf.solve), and the plan's work items and
+    its most items of one chunk into `counters["pair_items"]` and
+    `counters["chunk_items_max"]` when those are (cuda_pbf.work_table_ref)."""
     backend = resolve_backend(backend)
     if mark is None:
         mark = timing.mark_stage
@@ -150,7 +156,7 @@ def step_fn(cfg: SimConfig, backend: str, state: SimState,
         p_solved = cell_list.solve_cell_list(cfg, p_s, grid)
         mark("solve")
     else:
-        plan = cuda_pbf.build_plan(cfg, sorted_cid)
+        plan = cuda_pbf.build_plan(cfg, sorted_cid, counters)
         overflow = torch.stack([zero2[0], plan.n_overflow])
         if counters is not None:
             counters["plan_candidates"].add_(plan.n_candidates,
@@ -225,7 +231,11 @@ class Stepper:
     the window plans' (own row, candidate) pairs over every step taken,
     the warm-up step of a capture included (step_fn); "pair_evals", the
     pairs that the density passes' FP32 kernels evaluated over those steps
-    (0 on the CPU and with a tensor-core switch of the density pass on)."""
+    (0 on the CPU and with a tensor-core switch of the density pass on);
+    "pair_items", the work items of the plans over those steps, and
+    "chunk_items_max", the sum over those steps of each plan's most items
+    of one chunk (a sum of maxima, so that its increase over a session
+    over the session's steps is the mean longest chunk a step)."""
 
     def __init__(self, cfg: SimConfig, backend: str = "auto",
                  device: torch.device | str = "cuda"):
@@ -236,7 +246,8 @@ class Stepper:
         make_constants(cfg, self.device)
         self.counters = {name: torch.zeros((), dtype=torch.int64,
                                            device=self.device)
-                         for name in ("plan_candidates", "pair_evals")}
+                         for name in ("plan_candidates", "pair_evals",
+                                      "pair_items", "chunk_items_max")}
         self.bufs = self.scratch = None
         if self.backend == "window":
             n_pad = cuda_pbf.pad_to_chunks(cfg, cfg.n)

@@ -39,7 +39,13 @@
 // consecutive chunks in coalesced rounds, from the items of the runs
 // before it. C's division truncates where torch's floors; the two differ
 // only at cand = 0, where (cand - 1) / seg_len is 0 here and -1 there,
-// and the clamp to one item makes both 1.
+// and the clamp to one item makes both 1. With its counters given, the
+// last warp, which holds the fewest chunks (often none), adds the
+// table's items (seg_prefix's last entry) into `items` and the most items
+// of one chunk into `items_max` while the others scan: items() rises with
+// cand, so that is the items of the largest cand, whose block max rides
+// beside the sum. One block, one writing thread: a plain add in the
+// stream's order.
 //
 // The launchers take raw pointers and the stream, never synchronise, and
 // return cudaGetLastError() so a refused launch is reported at once.
@@ -154,6 +160,12 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+__device__ __forceinline__ long long warp_max(long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = max(v, __shfl_xor_sync(kFull, v, d));
+  return v;
+}
+
 // The inclusive prefix sum of one value a lane, in lane order.
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -184,26 +196,32 @@ __global__ void __launch_bounds__(kTableThreads)
                       int seg, int spare, int* __restrict__ seg_len_out,
                       int* __restrict__ seg_prefix,
                       long long* __restrict__ total_out,
-                      int* __restrict__ overflow) {
+                      int* __restrict__ overflow,
+                      long long* __restrict__ items_out,
+                      long long* __restrict__ items_max_out) {
   __shared__ long long warp_total[kTableWarps];
+  __shared__ long long warp_largest[kTableWarps];
   __shared__ int warp_items[kTableWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = (chunks + kTableThreads - 1) / kTableThreads * 32;
   const int first = min(warp * per, chunks);
   const int last = min(first + per, chunks);
 
-  long long t = 0;
+  long long t = 0, largest = 0;
   int run = 0;
 #pragma unroll 4
   for (int c = first + lane; c < last; c += 32) {
     const long long v = __ldg(cand + c);
     t += v;
+    largest = max(largest, v);
     run += items(v, seg);
   }
   t = warp_sum(t);
+  largest = warp_max(largest);
   run = warp_sum(run);
   if (lane == 0) {
     warp_total[warp] = t;
+    warp_largest[warp] = largest;
     warp_items[warp] = run;
   }
   __syncthreads();
@@ -219,6 +237,14 @@ __global__ void __launch_bounds__(kTableThreads)
     run = warp_sum(run);
     if (lane == 0) warp_items[warp] = run;  // no warp has read it yet
     __syncthreads();
+  }
+  if (items_out != nullptr && warp == kTableWarps - 1) {
+    const int all = warp_sum(lane < kTableWarps ? warp_items[lane] : 0);
+    largest = warp_max(lane < kTableWarps ? warp_largest[lane] : 0LL);
+    if (lane == 0) {
+      *items_out += all;
+      *items_max_out += items(largest, seg_len);
+    }
   }
   // the items of the runs before this warp's
   int carry = warp_sum(lane < warp ? warp_items[lane] : 0);
@@ -256,18 +282,29 @@ extern "C" int launch_plan_windows(const void* sorted_cid, int n_pad,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (cand, chunks, seg, spare, seg_len, seg_prefix, total, overflow, stream):
-// cand (chunks,) int64; writes seg_len () int32, seg_prefix (chunks + 1,)
-// int32, total () int64 and, unless overflow is NULL, a 0 into overflow
-// () int32. spare = items beyond one a chunk, > 0.
+// (cand, chunks, seg, spare, seg_len, seg_prefix, total, overflow, items,
+// items_max, stream): cand (chunks,) int64; writes seg_len () int32,
+// seg_prefix (chunks + 1,) int32, total () int64 and, unless overflow is
+// NULL, a 0 into overflow () int32; unless items is NULL, adds the table's
+// items into items () int64 and the most items of one chunk into
+// items_max () int64 (both NULL or neither). spare = items beyond one a
+// chunk, > 0.
 extern "C" int launch_work_table(const void* cand, int chunks, int seg,
                                  int spare, void* seg_len,
                                  void* seg_prefix, void* total,
-                                 void* overflow, void* stream) {
+                                 void* overflow, void* items,
+                                 void* items_max, void* stream) {
+  if ((items == nullptr) != (items_max == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   work_table_kernel<<<1, kTableThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(cand), chunks, seg, spare,
       static_cast<int*>(seg_len), static_cast<int*>(seg_prefix),
-      static_cast<long long*>(total), static_cast<int*>(overflow));
+      static_cast<long long*>(total), static_cast<int*>(overflow),
+      static_cast<long long*>(items), static_cast<long long*>(items_max));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The launchers' interface: 2 since launch_work_table takes the work-item
+// counters.
+extern "C" int pbf_plan_abi() { return 2; }

@@ -222,9 +222,11 @@ def window_offsets(w: int, device: torch.device) -> torch.Tensor:
         dtype=torch.int32, device=device)
 
 
-def build_plan_ref(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
+def build_plan_ref(cfg: SimConfig, sorted_cid: torch.Tensor,
+                   counters: dict[str, torch.Tensor] | None = None
+                   ) -> WindowPlan:
     """The plain torch plan. sorted_cid: (n_pad,) int32 sorted cell ids,
-    padding = num_nb_cells.
+    padding = num_nb_cells; `counters` as work_table_ref's.
 
     Windows follow pdb_sph_tpu/ops/pallas_pbf.py:101-234 without its
     quantisation: the chunk's cell span [c_first, c_last] is taken from its
@@ -260,7 +262,8 @@ def build_plan_ref(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     start = torch.where(is_pad, torch.zeros_like(start), start)
     end = torch.where(is_pad, torch.zeros_like(end), end)
     ranges = torch.stack([start, end], dim=-1).contiguous()
-    seg_len, seg_prefix, total = work_table_ref(cfg, (end - start).sum(dim=1))
+    seg_len, seg_prefix, total = work_table_ref(cfg, (end - start).sum(dim=1),
+                                                counters)
     return WindowPlan(ranges=ranges,
                       n_overflow=torch.zeros((), dtype=torch.int32,
                                              device=dev),
@@ -277,14 +280,17 @@ def _plan_library(t: torch.Tensor):
     return load_kernels()
 
 
-def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
+def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor,
+               counters: dict[str, torch.Tensor] | None = None
+               ) -> WindowPlan:
     """The step's window plan of sorted_cid, (n_pad,) int32 sorted cell ids
     with padding = num_nb_cells. CPU: build_plan_ref. CUDA: the two kernels
     of `csrc/pbf_plan.cu`, the same fields bit for bit, built on the device
     with no host read; each counts one launch, under LAUNCHES["plan"] and
-    LAUNCHES["work_table"]. Any other device raises."""
+    LAUNCHES["work_table"]. `counters` as work_table_ref's, added to inside
+    the work table's kernel. Any other device raises."""
     if sorted_cid.device.type == "cpu":
-        return build_plan_ref(cfg, sorted_cid)
+        return build_plan_ref(cfg, sorted_cid, counters)
     kernels = _plan_library(sorted_cid)
     if sorted_cid.dtype != torch.int32 or sorted_cid.dim() != 1 \
             or not sorted_cid.is_contiguous():
@@ -304,7 +310,8 @@ def build_plan(cfg: SimConfig, sorted_cid: torch.Tensor) -> WindowPlan:
     kernels.check(code, "launch_plan_windows")
     count_launch("plan", "launch_plan_windows")
     n_overflow = torch.empty((), dtype=torch.int32, device=dev)
-    seg_len, seg_prefix, total = _work_table_kernel(cfg, cand, n_overflow)
+    seg_len, seg_prefix, total = _work_table_kernel(cfg, cand, n_overflow,
+                                                    counters)
     return WindowPlan(ranges=ranges, n_overflow=n_overflow,
                       seg_prefix=seg_prefix, seg_len=seg_len,
                       n_candidates=total)
@@ -333,14 +340,19 @@ def restrict_plan(cfg: SimConfig, plan: WindowPlan,
                       n_candidates=total)
 
 
-def work_table_ref(cfg: SimConfig, cand: torch.Tensor):
+def work_table_ref(cfg: SimConfig, cand: torch.Tensor,
+                   counters: dict[str, torch.Tensor] | None = None):
     """The plain torch work table: (seg_len () int32, seg_prefix (chunks +
     1,) int32, total () int64) for chunks of `cand` candidates each, on the
     device, with no host read; total is their sum.
 
     seg_len is the geometry's `seg` unless the candidates would need more
     than ITEMS_PER_CHUNK * chunks items; then it is the least length that
-    fits: sum(max(1, ceil(cand / L))) <= chunks + total / L <= capacity."""
+    fits: sum(max(1, ceil(cand / L))) <= chunks + total / L <= capacity.
+
+    Where `counters` holds "pair_items" and "chunk_items_max" (0-dim int64,
+    `core.step.Stepper.counters`), the table's items (seg_prefix[-1]) are
+    added into the first and the most items of one chunk into the second."""
     chunks = cand.shape[0]
     spare = ITEMS_PER_CHUNK * chunks - chunks  # items beyond one a chunk
     total = cand.sum(dtype=torch.int64)
@@ -351,13 +363,33 @@ def work_table_ref(cfg: SimConfig, cand: torch.Tensor):
     seg_prefix = torch.zeros((chunks + 1,), dtype=torch.int32,
                              device=cand.device)
     torch.cumsum(items, 0, dtype=torch.int32, out=seg_prefix[1:])
+    counted = _item_counters(counters, cand.device)
+    if counted is not None:
+        counted[0].add_(seg_prefix[-1])
+        counted[1].add_(items.max())
     return seg_len, seg_prefix, total
 
 
+def _item_counters(counters: dict[str, torch.Tensor] | None,
+                   device: torch.device):
+    """(pair_items, chunk_items_max) of `counters`, or None where it lacks
+    them; each must be a 0-dim int64 on `device`, which a kernel writes."""
+    if counters is None or "pair_items" not in counters:
+        return None
+    got = counters["pair_items"], counters["chunk_items_max"]
+    for t in got:
+        if t.dtype != torch.int64 or t.dim() != 0 or t.device != device:
+            raise ValueError(f"a work-item counter must be a 0-dim int64 on "
+                             f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    return got
+
+
 def _work_table_kernel(cfg: SimConfig, cand: torch.Tensor,
-                       n_overflow: torch.Tensor | None = None):
+                       n_overflow: torch.Tensor | None = None,
+                       counters: dict[str, torch.Tensor] | None = None):
     """work_table's kernel on a card; also writes the 0 of `n_overflow`,
-    a () int32, when given."""
+    a () int32, when given, and adds into `counters` as work_table_ref."""
     kernels = _plan_library(cand)
     if cand.dim() != 1 or not cand.is_contiguous() or cand.numel() < 1:
         raise ValueError(f"cand must be contiguous (chunks,), chunks >= 1, "
@@ -368,26 +400,30 @@ def _work_table_kernel(cfg: SimConfig, cand: torch.Tensor,
     seg_len = torch.empty((), dtype=torch.int32, device=dev)
     seg_prefix = torch.empty((chunks + 1,), dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
+    counted = _item_counters(counters, dev)
     code = kernels.lib.launch_work_table(
         cand.data_ptr(), chunks, cfg.geom.seg,
         ITEMS_PER_CHUNK * chunks - chunks,
         seg_len.data_ptr(), seg_prefix.data_ptr(), total.data_ptr(),
         None if n_overflow is None else n_overflow.data_ptr(),
+        *((None, None) if counted is None
+          else (counted[0].data_ptr(), counted[1].data_ptr())),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(code, "launch_work_table")
     count_launch("work_table", "launch_work_table")
     return seg_len, seg_prefix, total
 
 
-def work_table(cfg: SimConfig, cand: torch.Tensor):
+def work_table(cfg: SimConfig, cand: torch.Tensor,
+               counters: dict[str, torch.Tensor] | None = None):
     """(seg_len () int32, seg_prefix (chunks + 1,) int32, total () int64)
-    for chunks of `cand` candidates each (work_table_ref), on the device,
-    with no host read. CPU: work_table_ref. CUDA: `csrc/pbf_plan.cu`'s
-    work_table_kernel, one launch under LAUNCHES["work_table"]. Any other
-    device raises."""
+    for chunks of `cand` candidates each (work_table_ref, with its
+    `counters`), on the device, with no host read. CPU: work_table_ref.
+    CUDA: `csrc/pbf_plan.cu`'s work_table_kernel, one launch under
+    LAUNCHES["work_table"]. Any other device raises."""
     if cand.device.type == "cpu":
-        return work_table_ref(cfg, cand)
-    return _work_table_kernel(cfg, cand)
+        return work_table_ref(cfg, cand, counters)
+    return _work_table_kernel(cfg, cand, counters=counters)
 
 
 # ---------------------------------------------------------------------------

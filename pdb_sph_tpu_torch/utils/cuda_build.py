@@ -59,9 +59,9 @@ SIGNATURES = {
                         _P),
     # (sorted_cid, n_pad, chunks, own, ncells, width, ranges, cand, stream)
     # and (cand, chunks, seg, spare, seg_len, seg_prefix, total, overflow,
-    # stream): csrc/pbf_plan.cu
+    # items, items_max, stream): csrc/pbf_plan.cu, `pbf_plan_abi` 2
     "launch_plan_windows": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "launch_work_table": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "launch_work_table": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

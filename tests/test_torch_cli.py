@@ -162,8 +162,8 @@ def test_overflow_gate(tmp_path, monkeypatch):
     plan cannot overflow, so a plan that reports one stands in."""
     real = tstep.cuda_pbf.build_plan
 
-    def overflowing(cfg, sorted_cid):
-        plan = real(cfg, sorted_cid)
+    def overflowing(cfg, sorted_cid, *counters):
+        plan = real(cfg, sorted_cid, *counters)
         return plan._replace(n_overflow=torch.ones_like(plan.n_overflow))
 
     monkeypatch.setattr(tstep.cuda_pbf, "build_plan", overflowing)

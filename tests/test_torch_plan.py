@@ -9,6 +9,17 @@ per-chunk algorithm in numpy (a binary search a window bound, the running
 max over the nine windows, the work table's truncating division), and the
 tests hold it to build_plan_ref field for field; chip_smoke.py holds the
 kernels to build_plan_ref on the card.
+
+The work table's two counters (`pair_items`, `chunk_items_max`): the plain
+table adds its items and its most items of one chunk, the step adds them
+once a step, and the sharded callers add nothing. The test marked `card`
+holds the kernel's counters to the plain ones on a card, with
+
+    python -m pytest --noconftest -p no:cacheprovider -o addopts="" \
+        -m card tests/test_torch_plan.py
+
+and skips without one; JAX is imported only where the JAX test needs it,
+since the card's machine does not have it.
 """
 
 import dataclasses
@@ -17,7 +28,6 @@ import numpy as np
 import pytest
 import torch
 
-import pdb_sph_tpu as jpbf
 from pdb_sph_tpu_torch import interop
 from pdb_sph_tpu_torch.config import default_config
 from pdb_sph_tpu_torch.geometry import KernelGeometry
@@ -66,6 +76,8 @@ def _check_chunks(cfg, plan, ps, chunks):
 @pytest.mark.parametrize("own", [64, 128])
 def test_window_plan_covers_all_pairs(own):
     """Every pair within h falls in exactly one window of its chunk."""
+    import pdb_sph_tpu as jpbf
+
     jcfg = jpbf.default_config(n=384)
     cfg = interop.config_from_fields(dataclasses.asdict(jcfg))
     cfg = dataclasses.replace(cfg, geom=dataclasses.replace(cfg.geom,
@@ -300,3 +312,165 @@ def test_a_plan_on_a_device_without_kernels_raises():
     with pytest.raises(ValueError, match="no plan kernel"):
         cuda_pbf.work_table(cfg, torch.zeros((4,), dtype=torch.int64,
                                              device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# the work table's counters
+# ---------------------------------------------------------------------------
+
+ITEM_COUNTERS = ("pair_items", "chunk_items_max")
+
+
+def _item_counters(device="cpu") -> dict:
+    return {k: torch.zeros((), dtype=torch.int64, device=device)
+            for k in ITEM_COUNTERS}
+
+
+def _synthetic_cand(stretch: bool) -> np.ndarray:
+    """test_the_kernels_work_table_is_the_plain_one's chunks: 31,250 of
+    them, 500 empty, one of 200,000 candidates, stretched or not."""
+    seg = KernelGeometry().seg
+    rng = np.random.default_rng(3)
+    cand = rng.integers(0, (40 if stretch else 4) * seg, size=31_250)
+    cand[rng.choice(cand.size, 500, replace=False)] = 0
+    cand[7] = 200_000
+    return cand
+
+
+@pytest.mark.parametrize("stretch", [False, True])
+def test_the_plain_table_adds_its_items_to_the_counters(stretch):
+    """work_table_ref adds seg_prefix[-1] into pair_items and the most
+    items of one chunk (_mirror_table's, at the stretched length where the
+    segments stretch) into chunk_items_max, at every call; the table is
+    the one it gives without counters."""
+    cand = _synthetic_cand(stretch)
+    seg_len, seg_prefix, _ = _mirror_table(cand, KernelGeometry().seg)
+    most = int(np.diff(seg_prefix).max())
+    assert most == max(1, -(-200_000 // seg_len))
+    cfg, counters = _cfg(64, 64), _item_counters()
+    plain = cuda_pbf.work_table_ref(cfg, torch.from_numpy(cand))
+    for calls in (1, 2):
+        got = cuda_pbf.work_table_ref(cfg, torch.from_numpy(cand), counters)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+        assert int(counters["pair_items"]) == calls * int(seg_prefix[-1])
+        assert int(counters["chunk_items_max"]) == calls * most
+    assert counters["pair_items"].dtype == torch.int64
+
+
+def test_the_plain_table_of_empty_chunks_counts_one_item_each():
+    """Chunks without candidates take one item each: the most is 1."""
+    counters = _item_counters()
+    cuda_pbf.work_table_ref(_cfg(64, 64), torch.zeros((5,), dtype=torch.int64),
+                            counters)
+    assert [int(counters[k]) for k in ITEM_COUNTERS] == [5, 1]
+
+
+@pytest.mark.parametrize("bad", [torch.zeros((), dtype=torch.int32),
+                                 torch.zeros((1,), dtype=torch.int64),
+                                 torch.zeros((), dtype=torch.int64,
+                                             device="meta")],
+                         ids=["int32", "not-0-dim", "another-device"])
+def test_a_counter_the_kernel_could_not_write_raises(bad):
+    """A work-item counter that is not a 0-dim int64 on the table's
+    device is refused before any pointer is taken."""
+    counters = _item_counters() | {"chunk_items_max": bad}
+    with pytest.raises(ValueError, match="work-item counter"):
+        cuda_pbf.work_table(_cfg(64, 64), torch.ones((3,), dtype=torch.int64),
+                            counters)
+
+
+@pytest.fixture
+def card():
+    """The card, or skip: decided when a test asks, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("stretch", [False, True])
+def test_the_kernels_counters_are_the_plain_ones(card, stretch):
+    """On a card work_table_kernel writes the plain table's counters, twice
+    added; without counters it adds nothing; and a plan built with them
+    adds its table's."""
+    cfg = _cfg(64, 64)
+    cand = torch.from_numpy(_synthetic_cand(stretch))
+    want = _item_counters()
+    cuda_pbf.work_table_ref(cfg, cand, want)
+    got = _item_counters(card)
+    for _ in range(2):
+        cuda_pbf.work_table(cfg, cand.to(card), got)
+    cuda_pbf.work_table(cfg, cand.to(card))
+    torch.cuda.synchronize()
+    assert [int(got[k]) for k in ITEM_COUNTERS] \
+        == [2 * int(want[k]) for k in ITEM_COUNTERS]
+    cfg = _cfg(20_000 + 17, 64)
+    sorted_cid = _spawn_ids(cfg, extra_chunks=2)
+    want, got = _item_counters(), _item_counters(card)
+    cuda_pbf.build_plan_ref(cfg, sorted_cid, want)
+    cuda_pbf.build_plan(cfg, sorted_cid.to(card), got)
+    torch.cuda.synchronize()
+    assert [int(got[k]) for k in ITEM_COUNTERS] \
+        == [int(want[k]) for k in ITEM_COUNTERS]
+    assert int(want["pair_items"]) > cfg.n // 64
+
+
+def _tables(monkeypatch) -> list:
+    """The counters argument of every work_table_ref call from now on."""
+    seen, real = [], cuda_pbf.work_table_ref
+
+    def spy(cfg, cand, counters=None):
+        seen.append(counters)
+        return real(cfg, cand, counters)
+
+    monkeypatch.setattr(cuda_pbf, "work_table_ref", spy)
+    return seen
+
+
+def test_the_step_adds_the_items_once_a_step(monkeypatch):
+    """Over a CPU Rollout's steps the counters are the sums of each step's
+    plan: its items (seg_prefix[-1]) and its most items of one chunk,
+    recomputed here from the same states, each plan's table made once."""
+    from pdb_sph_tpu_torch import spawn
+    from pdb_sph_tpu_torch.core import step as tstep
+    from pdb_sph_tpu_torch.ops.integrate import predict
+
+    cfg = default_config(n=2000)
+    st = spawn(cfg, "dam_break", seed=0, device="cpu")
+    seen = _tables(monkeypatch)
+    rollout = tstep.make_rollout(cfg, "window", 3, device="cpu")
+    got = rollout(st)
+    assert len(seen) == 3 and all(c is rollout.stepper.counters
+                                  for c in seen)
+    items = most = 0
+    for _ in range(3):
+        p, _ = predict(cfg, st.x, st.v)
+        sorted_cid, _ = tstep.sort_cells(cfg, hashgrid.cell_ids(cfg, p))
+        prefix = cuda_pbf.build_plan_ref(cfg, sorted_cid).seg_prefix
+        items += int(prefix[-1])
+        most += int((prefix[1:] - prefix[:-1]).max())
+        st = tstep.step_fn(cfg, "window", st)
+    assert all(torch.equal(a, b) for a, b in zip(got, st))
+    counters = rollout.stepper.counters
+    assert int(counters["pair_items"]) == items > 3 * cfg.n // cfg.geom.own
+    assert int(counters["chunk_items_max"]) == most >= 3
+
+
+def test_the_sharded_callers_add_nothing(monkeypatch):
+    """The one-rank fast path's step and diagnostics, a rank's plans and
+    their restricted tables (sharded._window_plans) and restrict_plan
+    build every table without counters."""
+    from pdb_sph_tpu_torch import spawn
+    from pdb_sph_tpu_torch.parallel import sharded
+
+    cfg = default_config(n=1024)
+    st = spawn(cfg, "dam_break", seed=0, device="cpu")
+    pcfg = sharded.ParallelConfig.create(cfg, 1, state=st)
+    sst = sharded.distribute(cfg, pcfg, st, device="cpu")
+    seen = _tables(monkeypatch)
+    sharded.make_sharded_step(cfg, pcfg, device="cpu")(sst)
+    fast = len(seen)
+    cid = hashgrid.cell_ids(cfg, st.x)
+    sharded._window_plans(cfg, cid, (int(cid.median()), int(cid.max()) + 1))
+    assert fast >= 1 and len(seen) == fast + 3
+    assert all(c is None for c in seen)

@@ -137,7 +137,7 @@ def test_the_counter_sums_the_plans_candidate_pairs():
 
 def test_the_session_counts_exactly_the_profiled_calls():
     """A profiler session around calls 2 and 3 of 5: last_session() gives
-    those calls' steps and the counter's increase over them, closed at the
+    those calls' steps and each counter's increase over them, closed at the
     first call after the session, or when read after the session; and the
     untraced calls timed before each session. An older session that
     another rollout left open does not displace them when it closes."""
@@ -148,20 +148,22 @@ def test_the_session_counts_exactly_the_profiled_calls():
         stale(st)
     rollout = tstep.make_rollout(cfg, "window", 2, with_stats=True,
                                  device="cpu")
-    counter = rollout.stepper.counters["plan_candidates"]
+    counters = rollout.stepper.counters
     st = rollout(st)[0]
-    before = int(counter)
+    before = {k: int(c) for k, c in counters.items()}
     with torch.profiler.profile(activities=acts):
         st = rollout(st, 1)[0]
         st = rollout(st, 2)[0]
-    after = int(counter)
+    after = {k: int(c) for k, c in counters.items()}
     st = rollout(st)[0]
     st = rollout(st)[0]
     got = timing.last_session()
     assert got.pop("untraced_call_ms") > 0
-    assert got == {"steps": 3, "plan_candidates": after - before,
-                   "pair_evals": 0, "untraced_calls": 1}
-    assert after > before
+    assert got == {"steps": 3, "untraced_calls": 1,
+                   **{k: after[k] - before[k] for k in counters}}
+    assert got["pair_evals"] == 0
+    assert after["plan_candidates"] > before["plan_candidates"]
+    assert got["chunk_items_max"] >= 3 and got["pair_items"] >= 3
     # a session with no call after it is closed when it is read
     with torch.profiler.profile(activities=acts):
         rollout(st, 1)
