@@ -11,18 +11,19 @@ Builds the tree's source and the base source with the same nvcc flags,
 each into its own library, and runs K1 (lambda), K2 (project) and K1's rho
 output of each on the same inputs, the states of `--states`: by default
 the 80k dam break at step 60 (mid-collapse) and at step 480 (settled, the
-heaviest own-chunks), and the 1M dam break (wall 4.64) at step 60. The
-tree's kernels go through the port's wrappers; a base with another
-launcher interface (`pbf_window_abi`) is launched directly with its own
-arguments: interface 2 is the work table without the evaluated-pair
-counter (before the cull), and a library without the symbol is the
-one-block-per-chunk design. Launch times are medians of 20 CUDA-event
-timed launches, taken in the order base, tree, tree, base, `--rounds`
-times. Outputs must agree bit for bit when both builds have the same
-launcher interface, and within the kernels' tolerances (chip_smoke.py's)
-when they do not: the cull changes which warp sums which pair. Then the
-tree's kernels at every segment length of `--segs` (the geometry's
-`seg`), in order and reversed, on the 80k states. A variant of a kernel
+heaviest own-chunks), and the 1M dam break (wall 4.64) at step 60; the
+1M blowup (`blowup1m`) is a scene of its own. The tree's kernels go
+through the port's wrappers; a base with another launcher interface
+(`pbf_window_abi`) is launched directly with its own arguments: interface
+2 is the work table without the evaluated-pair counter (before the cull),
+and a library without the symbol is the one-block-per-chunk design.
+Launch times are medians of 20 CUDA-event timed launches, taken in the
+order base, tree, tree, base, `--rounds` times. Outputs must agree
+within the kernels' tolerances (chip_smoke.py's); whether they are also
+bitwise equal is reported beside (a change to the cull's groups changes
+which pairs each row's sum takes and in what order). Then the tree's kernels
+at every segment length of `--segs` (the geometry's `seg`), in order and
+reversed, on the 80k states. A variant of a kernel
 constant (the ring's `kStageLen`, `kStages`) is A/B'd as a variant source
 through `--base`. Each build's ptxas register report is printed. Writes
 chiprun_out/kernel_ab.json.
@@ -44,8 +45,10 @@ from typing import NamedTuple
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# scene -> (n, wall or None for the default)
-SCENES = {"80k": (80_000, None), "1m": (1_000_000, 4.64)}
+# scene -> (the scene spawned, n, wall or None for the default)
+SCENES = {"80k": ("dam_break", 80_000, None),
+          "1m": ("dam_break", 1_000_000, 4.64),
+          "blowup1m": ("blowup", 1_000_000, 4.64)}
 STATES = "80k:60,80k:480,1m:60"
 REPS = 20
 KINDS = ("density_lambda", "project", "density_rho")
@@ -73,8 +76,8 @@ class State(NamedTuple):
 
 
 def _state_inputs(spec: str, device) -> list[State]:
-    """The dam break's states named in `spec` ("<scene>:<step>,..."), each
-    scene rolled out once from its seed-0 spawn."""
+    """The states named in `spec` ("<scene>:<step>,..."), each scene
+    rolled out once from its seed-0 spawn."""
     import pdb_sph_tpu_torch as pbf
     from pdb_sph_tpu_torch.core.step import sort_cells
     from pdb_sph_tpu_torch.ops import cuda_pbf, hashgrid
@@ -85,10 +88,11 @@ def _state_inputs(spec: str, device) -> list[State]:
         wanted.setdefault(scene, []).append(int(step))
     out = []
     for scene, steps in wanted.items():
-        n, wall = SCENES[scene]
-        cfg = pbf.default_config(n=n, **({} if wall is None
-                                         else {"wall": wall}))
-        state, at = pbf.spawn(cfg, "dam_break", seed=0, device=device), 0
+        kind, n, wall = SCENES[scene]
+        config = pbf.blowup_config if kind == "blowup" else \
+            pbf.default_config
+        cfg = config(n=n, **({} if wall is None else {"wall": wall}))
+        state, at = pbf.spawn(cfg, kind, seed=0, device=device), 0
         for step in sorted(steps):
             state = pbf.make_rollout(cfg, "window", step - at,
                                      device=device)(state)
@@ -227,7 +231,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="the other version of csrc/pbf_window.cu")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--states", default=STATES,
-                    help="<scene>:<step>,... with scene 80k or 1m")
+                    help="<scene>:<step>,... with scene 80k, 1m or "
+                    "blowup1m")
     ap.add_argument("--segs", default="256,384,512,768,1024,1536,2048")
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
     args = ap.parse_args(argv)
@@ -248,16 +253,13 @@ def main(argv: list[str] | None = None) -> int:
     libs = {"tree": cuda_build.load_kernels(),
             "base": cuda_build.build_library([args.base.resolve()], ab_dir)}
     abi = {tag: _abi(kl) for tag, kl in libs.items()}
-    bitwise = abi["tree"] == abi["base"]
     for tag, kl in libs.items():
         print(f"[build] {tag}: {kl.path.name}, launcher interface "
               f"{abi[tag]}; ptxas: "
               + "; ".join(cuda_build.ptxas_registers(kl.log)))
-    print("[ab] outputs compared " + ("bit for bit" if bitwise else
-                                      "within the kernels' tolerances"))
 
     device = torch.device("cuda", 0)
-    result = {"card": card, "abi": abi, "bitwise": bitwise, "states": []}
+    result = {"card": card, "abi": abi, "states": []}
     loader = cuda_build.load_kernels
     try:
         states = _state_inputs(args.states, device)
@@ -282,16 +284,13 @@ def main(argv: list[str] | None = None) -> int:
             for kind in KINDS:
                 outs = {t: runs[t](kind, src[kind], plan,
                                    torch.zeros_like(p4)) for t in libs}
-                if bitwise:
-                    ok = torch.equal(outs["tree"], outs["base"])
-                    diff, outside = None, None
-                else:
-                    diff, outside = _disagreement(kind, outs["tree"],
-                                                  outs["base"], st.n)
-                    ok = outside == 0
-                if not ok:
+                diff, outside = _disagreement(kind, outs["tree"],
+                                              outs["base"], st.n)
+                bitwise = torch.equal(outs["tree"], outs["base"])
+                if outside:
                     bad.append(kind)
                 row[f"{kind}_max_abs_diff"] = diff
+                row[f"{kind}_bitwise"] = bitwise
                 for tag in libs:
                     row[f"{kind}_{tag}_ms"] = times[tag][kind]
                     row[f"{kind}_{tag}_median_ms"] = statistics.median(
@@ -302,10 +301,9 @@ def main(argv: list[str] | None = None) -> int:
                       f"{st.candidates_mean:.1f} max {st.candidates_max}; "
                       f"{row['items']} items) {kind}: base "
                       f"{b:.4f} ms, tree {t:.4f} ms (tree/base {t / b:.4f}); "
-                      f"outputs {'equal' if ok else 'DIFFER'}"
-                      + ("" if diff is None else f" (max|diff| {diff:.3e},"
-                         f" {outside} outside the tolerance)")
-                      + f"; base runs {times['base'][kind]}, tree runs "
+                      f"outputs {'bitwise equal' if bitwise else 'not bitwise'}"
+                      f" (max|diff| {diff:.3e}, {outside} outside the "
+                      f"tolerance); base runs {times['base'][kind]}, tree runs "
                       f"{times['tree'][kind]}")
             result["states"].append(row)
             if bad:

@@ -12,7 +12,11 @@
 // `seg_prefix[c]` counts the items before chunk c. A persistent grid of
 // SMs x occupancy blocks takes items from a counter, kGrab consecutive
 // items at a time, so no block carries a heavy chunk's whole chain while
-// the rest of the card idles.
+// the rest of the card idles; once fewer items are left than the grid
+// takes in kTailRounds rounds of kGrab, a block takes one at a time, so
+// that the blocks end closer together (a short launch, such as the 80k
+// scene's ~7 items a block, is otherwise paced by the blocks that drew a
+// last grab of two).
 //
 // Staging. A block is kWarps warps that run the body and one producer
 // warp. The producer takes the items, finds each item's chunk (32 probes
@@ -72,8 +76,10 @@ constexpr int kStageLen = 256;
 // mbarrier words at the head of shared memory: a full and an empty
 // barrier per stage
 constexpr int kBarBytes = 2 * kStages * 8;
-// consecutive items that the producer takes at a time
+// consecutive items that the producer takes at a time, and the rounds of
+// the grid's grabs before the end from which it takes one
 constexpr int kGrab = 2;
+constexpr int kTailRounds = 2;
 // a wait that has not seen its tile after this many tries traps, so a
 // fault shows as a failed launch and not as a hung card
 constexpr uint32_t kSpinLimit = 1u << 24;
@@ -212,11 +218,14 @@ __device__ __forceinline__ void produce(
     return s;
   };
   int c = 0;
+  int grab = kGrab;
+  const int tail = kTailRounds * kGrab * int(gridDim.x);
   for (int item = 0, last = 0;; ++item) {
     if (item == last) {
-      if (lane == 0) item = atomicAdd(next_item, kGrab);
+      if (lane == 0) item = atomicAdd(next_item, grab);
       item = __shfl_sync(0xffffffffu, item, 0);
-      last = min(item + kGrab, items);
+      last = min(item + grab, items);
+      if (items - last < tail) grab = 1;
       if (item >= items) {
         const int s = stage();
         if (lane == 0) {

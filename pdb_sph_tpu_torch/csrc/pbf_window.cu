@@ -18,42 +18,62 @@
 //
 // The cull. Most candidates lie beyond h of every row of the chunk, so the
 // body does not see them. Each item splits its chunk's own rows into
-// kCull groups (two halves at the median of the coordinate along the
-// longest axis of the rows' box, for own >= 64; the whole chunk for own
-// 32), and takes each group's axis-aligned box over the rows it writes
-// (i < n); a block's next item of the same chunk keeps them. Each warp
-// tests its runs of eight candidates of a staged tile (a quarter of it)
-// against each box by the squared distance from the box,
-// sum_a max(0, lo_a - c_a, c_a - hi_a)^2, one lane a candidate, and copies
-// each group's survivors into a list of its own (a ballot and popc
-// prefix). It then meets each survivor with the group's rows, which each
-// lane holds R / kCull of, four survivors at a time (own 64) so that the
-// warp has independent chains to issue. A pair is thus evaluated only when
-// its candidate can reach its row's group: per pair within h, ~3.8
-// evaluations in place of the plan's ~7.6 at own 64 (`evals_per_pair` and
-// `candidates_per_pair` in the benchmark). The survivors are copies, not
-// indices into the tile, and each warp keeps its own, because the cut
-// shows only when little but the pair body is left per evaluation
-// (PERF.md, PR 17: index lists and lists shared across the warps cost as
-// much as the pairs they saved).
+// kCull groups and takes each group's axis-aligned box over the rows it
+// writes (i < n); a block's next item of the same chunk keeps them. For
+// own >= 64 the groups are a k-d split in two cuts: the rows are ranked
+// along the longest axis of their box and cut at the median into halves,
+// then each half is ranked along the longest axis of its own box and cut
+// at its own median, so group 2 h + q is quarter q of half h (own / 4
+// rows); own 32 keeps the whole chunk as one group. Body warp w takes
+// group w and every candidate of a staged tile (at own 32 the four warps
+// take the one group and a quarter of the tile each, runs of eight in
+// turn), tests them against the group's box by the squared distance from
+// the box, sum_a max(0, lo_a - c_a, c_a - hi_a)^2, one lane a candidate,
+// and appends the survivors to a list of its own (a ballot and popc
+// prefix, no branch). It then meets the survivors with the group's rows,
+// four at a time a lane so that each lane has independent chains to
+// issue; a group of 16 rows (own 64) lies across each half-warp, whose
+// halves hold the same rows, take alternate survivors and add their sums
+// of a row at the item's end. Fewer than a step of survivors wait in the
+// list for the item's next tile, and the last for the item's end, so
+// each item pays one masked step a warp. A pair is thus evaluated only
+// when its candidate can reach its row's group: per pair within h, ~3.3
+// evaluations in place of the plan's ~7.6 at own 64 (~4.3 with two
+// halves; `evals_per_pair` and `candidates_per_pair` in the benchmark).
+// The survivors are copies, not indices into the tile, and each warp
+// keeps its own (PERF.md, section 6: index lists and lists shared across
+// the warps cost as much as the pairs they saved). A warp a group, and not
+// the four groups over each warp's lanes, because the card says so
+// (PERF.md, section 6): four lists, four boxes and four tails a warp cost
+// more than the quarter of the pairs they save, while a warp a group
+// needs one of each; the groups' work in an item differs (up to ~1.4x
+// the mean), and the lists cannot be shared without a barrier a tile. At
+// own 64 the registers are capped at 56 (seven blocks an SM, the most
+// that the shared memory allows), and K2, whose three sums leave the
+// fewest registers, reads its box from shared memory once a tile.
 //
-// Why the cull is conservative. A candidate is dropped only when the box
-// distance, computed with each product and sum rounded apart, is at least
-// h^2 (1 + 2^-16). Per axis the body's rounded delta is at least the
-// rounded gap to the box (rounding is monotone and every row lies in the
-// box), and the body's rd2, with or without FMA contraction, is at least
-// (1 - 6 u) times the box distance (u = 2^-24). So a dropped pair has a
+// Why the cull is conservative, box by box. A candidate is dropped from a
+// group only when its distance from the group's box, computed with each
+// product and sum rounded apart, is at least h^2 (1 + 2^-16). Per axis the
+// body's rounded delta is at least the rounded gap to the box (rounding is
+// monotone and every row of the group lies in its box), and the body's
+// rd2, with or without FMA contraction, is at least (1 - 6 u) times the
+// box distance (u = 2^-24). So a pair dropped with its row's group has a
 // body rd2 of at least h^2: the clamp would have set tt = 0 and u to a few
 // ulps of h, terms far below a float32 sum's last bit. The margin keeps
-// ~1e-5 of the shell at h that it need not. `cull_survivors` in
-// ops/cuda_pbf.py repeats the predicate bit for bit in plain torch.
+// ~1e-5 of the shell at h that it need not. A candidate dropped by one
+// group and kept by another meets only the rows of the other.
+// `cull_groups` and `cull_survivors` in ops/cuda_pbf.py repeat the
+// grouping, the boxes and the predicate bit for bit in plain torch.
 //
 // The design. pair_items.cuh schedules the work: items of at most
 // `seg_len` candidates of one chunk on a persistent grid, their tiles
 // staged through a bulk-copy ring by a producer warp, and a segment-order
 // combine with no float atomics. The four body warps' sums are the
-// combine's groups, added in warp order. The grouping (integer keys, ties
-// broken by the row), each warp's candidates and the order of its lists
+// combine's groups, added in warp order where they share the rows (own
+// 32); from own 64 on each warp writes its group's rows alone. The
+// grouping (integer keys, ties broken by the row), each warp's
+// candidates, the order of its list and the half-warps' turns at it
 // depend only on the input, so two launches give bitwise-equal output.
 //
 // The counter. A launcher given `evals` (an int64 on the card) adds the
@@ -79,8 +99,6 @@ namespace {
 
 using namespace pair_items;
 
-// candidates of a stage that each warp tests: runs of eight, every fourth
-constexpr int kCullPerWarp = kStageLen / kWarps;
 // the cull's margin on h^2 (the header's note)
 constexpr float kCullMargin = 1.0f + 1.0f / 65536.0f;
 
@@ -121,36 +139,60 @@ __device__ __forceinline__ void grow_box(float (&v)[6], float4 p) {
 }
 
 // What an item's grouping leaves in shared memory: the keys and the row of
-// each rank (kCull > 1), the warps' partial boxes of the chunk, and the
-// box of each 32 rows in rank order; each warp's survivors of a tile, a
-// list per cull group; and the warps' survivor counts at the block's exit.
-template <int kOwn, int kCull>
+// each rank (kCull > 1), the warps' partial boxes of the chunk and the box
+// of each 32 ranks of the first cut; each warp's list of survivors and the
+// box of its group (kProject); and the warps' survivor counts at the
+// block's exit.
+template <int kOwn, int kCull, int kListLen>
 struct CullShared {
   static constexpr int kRanked = kCull > 1 ? kOwn : 4;
   alignas(16) unsigned key[kRanked];
   int at[kRanked];
   float part[kWarps][6];
   float block[kOwn / 32][6];
-  float4 list[kWarps][kCull][kCullPerWarp];
+  float4 list[kWarps][kListLen];
+  float box[kWarps][6];
   unsigned survivors[kWarps];
 };
 
-// R own rows per lane, R / kCull of each cull group: lane l holds ranks
-// g * own / kCull + 32 s + l (s < R / kCull) of group g.
+// 32 R own rows in kCull cull groups of kGroupRows rows. With four groups
+// (own >= 64) body warp w takes group w and every candidate of a tile;
+// with one (own 32) each of the four warps takes the group's rows and a
+// quarter of every tile. A group lies across kWarpRows lanes: lane l holds
+// ranks g * kGroupRows + 32 s + l % kWarpRows (s < kRg), so with 16-row
+// groups (own 64) both halves of the warp hold the same rows, and half
+// l / 16 takes every other survivor.
 // kLambda's sums are (rho, g2), kRho's (rho), kProject's sum_j (h - r)^2
 // (lambda_i + s_corr + lambda_j) (p_i - p_j) with lambda_i carried through
 // (the self pair has dx = dy = dz = 0 exactly and adds s * 0).
 template <Pass kPass, int R>
 struct WindowBody {
   static constexpr int kOwn = 32 * R;
-  static constexpr int kGroups = kWarps;
-  static constexpr int kCull = R >= 2 ? 2 : 1;
-  static constexpr int kRg = R / kCull;
+  static constexpr int kCull = R >= 2 ? 4 : 1;
+  // warps that share a group, each taking runs of eight of every
+  // kShare-th
+  static constexpr int kShare = kWarps / kCull;
+  // row-sum groups for the combine: the warps that share the rows
+  static constexpr int kGroups = kShare;
   static constexpr int kGroupRows = kOwn / kCull;
-  // the pair work reads the ring: each warp culls and consumes its own
+  static constexpr int kWarpRows = kGroupRows < 32 ? kGroupRows : 32;
+  // the warp's parts that take alternate survivors
+  static constexpr int kSplit = 32 / kWarpRows;
+  static constexpr int kRg = kGroupRows / kWarpRows;
+  // candidates of a tile that a warp tests
+  static constexpr int kPerWarp = kStageLen / kShare;
+  // survivors a lane meets at a time, and a warp's survivors per step
+  static constexpr int kUnroll = kRg >= 4 ? 1 : 4 / kRg;
+  static constexpr int kStep = kSplit * kUnroll;
+  // a list holds a tile's survivors after fewer than kStep carried over
+  // from the item's tiles before, and one slot that the dropped
+  // candidates are written to
+  static constexpr int kListLen = kPerWarp + kStep;
+  static constexpr int kDrop = kListLen - 1;
+  // the pair work reads the ring: each warp culls and consumes its
   // candidates of a tile, and leaves it when done
   static constexpr int kPlaneBytes = 0;
-  using Shared = CullShared<kOwn, kCull>;
+  using Shared = CullShared<kOwn, kCull, kListLen>;
 
   // the block's one Shared
   static __device__ __forceinline__ Shared& shared() {
@@ -161,15 +203,24 @@ struct WindowBody {
   Consts k;
   int lane, warp;
   // the chunk of the block's last item: its next item of the same chunk
-  // keeps the grouping, the rows and the boxes
+  // keeps the grouping, the rows and the box
   int row0_last;
   // this warp's survivors over the block's items (each meets the
-  // kGroupRows rows of its group): at most the launch's candidates times
-  // kCull, far below 2^32
+  // kGroupRows rows of its group): at most the launch's candidates, far
+  // below 2^32
   unsigned survivors;
-  float4 me[kCull][kRg];
-  float olam[kCull][kRg];  // lambda_i + s_corr (kProject)
-  float a0[kCull][kRg], a1[kCull][kRg], a2[kCull][kRg];
+  // survivors carried over to the item's next tile (fewer than kStep, at
+  // the head of the warp's list)
+  int pending;
+  float4 me[kRg];
+  float olam[kRg];  // lambda_i + s_corr (kProject)
+  float a0[kRg], a1[kRg], a2[kRg];
+  // kProject, whose three sums leave the fewest registers, reads its
+  // group's box from shared memory once a tile and loops over the tile's
+  // rounds of candidates; the others keep the box in registers and
+  // unroll the rounds (faster for each on the card, PERF.md, section 6)
+  static constexpr bool kLean = kPass == Pass::kProject;
+  float lo[3], hi[3];
 
   // the chunk row at rank q
   __device__ __forceinline__ int row_at(int q) const {
@@ -180,22 +231,67 @@ struct WindowBody {
     }
   }
 
-  // Rank the chunk's rows along the longest axis of their box: keys of the
-  // coordinate's order with the low bits the row (unique, so ties go by
-  // the row), rows past n last; sh.at[rank] = row.
+  // the rank of this lane's row s
+  __device__ __forceinline__ int rank_of(int s) const {
+    return warp / kShare * kGroupRows + 32 * s + lane % kWarpRows;
+  }
+
+  // the first of the longest extents of a box (no array indexed at run
+  // time)
+  static __device__ __forceinline__ int longest_axis(const float (&lo)[3],
+                                                     const float (&hi)[3]) {
+    const float e0 = hi[0] - lo[0], e1 = hi[1] - lo[1], e2 = hi[2] - lo[2];
+    int axis = e1 > e0 ? 1 : 0;
+    if (e2 > fmaxf(e0, e1)) axis = 2;
+    return axis;
+  }
+
+  // Chunk row t's ranking key along `axis`: the coordinate's order with
+  // the low bits the row (unique, so ties go by the row), rows past n
+  // last.
+  static __device__ __forceinline__ unsigned rank_key(float4 p, int axis,
+                                                      bool valid, int t) {
+    constexpr unsigned kLow = unsigned(kOwn - 1);
+    const float c = axis == 0 ? p.x : (axis == 1 ? p.y : p.z);
+    const unsigned o = valid ? order_key(c) : 0xffffffffu;
+    return (o & ~kLow) | unsigned(t);
+  }
+
+  // the keys of keys[0, kCount) below `key`
+  template <int kCount>
+  static __device__ __forceinline__ int keys_below(const unsigned* keys,
+                                                   unsigned key) {
+    int rank = 0;
+    const uint4* k4 = reinterpret_cast<const uint4*>(keys);
+#pragma unroll 4
+    for (int j = 0; j < kCount / 4; ++j) {
+      const uint4 q = k4[j];
+      rank += int(q.x < key) + int(q.y < key) + int(q.z < key) +
+              int(q.w < key);
+    }
+    return rank;
+  }
+
+  // The grouping's two cuts. First the chunk's rows are ranked along the
+  // longest axis of their box; then each half (ranks [0, own / 2) and
+  // [own / 2, own)) is ranked along the longest axis of its own box, by
+  // the same keys. sh.at[h * own / 2 + rank in half h] = row.
   __device__ __forceinline__ void rank_rows(const float4* __restrict__ pin,
                                             int row0, int n) {
     Shared& sh = shared();
     constexpr int kMine = (kOwn + kThreads - 1) / kThreads;
+    constexpr int kHalf = kOwn / 2;
     float4 p[kMine];
+    int t[kMine];
+    unsigned key[kMine];
     float v[6];
     empty_box(v);
 #pragma unroll
     for (int m = 0; m < kMine; ++m) {
-      const int t = threadIdx.x + kThreads * m;
-      if (t < kOwn) {
-        p[m] = pin[row0 + t];
-        if (row0 + t < n) grow_box(v, p[m]);
+      t[m] = threadIdx.x + kThreads * m;
+      if (t[m] < kOwn) {
+        p[m] = pin[row0 + t[m]];
+        if (row0 + t[m] < n) grow_box(v, p[m]);
       }
     }
     warp_box(v);
@@ -204,93 +300,130 @@ struct WindowBody {
       for (int a = 0; a < 6; ++a) sh.part[warp][a] = v[a];
     }
     consumer_sync();
-    float ext[3];
+    float lo[3], hi[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float l = sh.part[0][a], h = sh.part[0][3 + a];
+      lo[a] = sh.part[0][a];
+      hi[a] = sh.part[0][3 + a];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) {
-        l = fminf(l, sh.part[w][a]);
-        h = fmaxf(h, sh.part[w][3 + a]);
+        lo[a] = fminf(lo[a], sh.part[w][a]);
+        hi[a] = fmaxf(hi[a], sh.part[w][3 + a]);
       }
-      ext[a] = h - l;
     }
-    // the first of the longest extents (no array indexed at run time)
-    int axis = ext[1] > ext[0] ? 1 : 0;
-    if (ext[2] > fmaxf(ext[0], ext[1])) axis = 2;
-    constexpr unsigned kLow = unsigned(kOwn - 1);
-    unsigned key[kMine];
+    const int axis = longest_axis(lo, hi);
 #pragma unroll
     for (int m = 0; m < kMine; ++m) {
-      const int t = threadIdx.x + kThreads * m;
-      if (t < kOwn) {
-        const float c = axis == 0 ? p[m].x : (axis == 1 ? p[m].y : p[m].z);
-        const unsigned o = row0 + t < n ? order_key(c) : 0xffffffffu;
-        key[m] = (o & ~kLow) | unsigned(t);
-        sh.key[t] = key[m];
+      if (t[m] < kOwn) {
+        key[m] = rank_key(p[m], axis, row0 + t[m] < n, t[m]);
+        sh.key[t[m]] = key[m];
       }
     }
     consumer_sync();
 #pragma unroll
     for (int m = 0; m < kMine; ++m) {
-      const int t = threadIdx.x + kThreads * m;
-      if (t < kOwn) {
-        int rank = 0;
-        const uint4* keys = reinterpret_cast<const uint4*>(sh.key);
-#pragma unroll 4
-        for (int j = 0; j < kOwn / 4; ++j) {
-          const uint4 q = keys[j];
-          rank += int(q.x < key[m]) + int(q.y < key[m]) + int(q.z < key[m]) +
-                  int(q.w < key[m]);
+      if (t[m] < kOwn) sh.at[keys_below<kOwn>(sh.key, key[m])] = t[m];
+    }
+    consumer_sync();
+
+    // The second cut. Thread q takes rank q's row; each 32 ranks lie in
+    // one half (kHalf >= 32). A half of 32 ranks (own 64) is one warp's,
+    // so its box and its ranking stay in the warp; a larger half's box is
+    // made of the boxes of its 32 ranks (sh.block[q / 32]).
+#pragma unroll
+    for (int m = 0; m < kMine; ++m) {
+      const int q = threadIdx.x + kThreads * m;
+      if (q < kOwn) {
+        t[m] = sh.at[q];
+        p[m] = pin[row0 + t[m]];
+        empty_box(v);
+        if (row0 + t[m] < n) grow_box(v, p[m]);
+        warp_box(v);
+        if constexpr (kHalf == 32) {
+          const float vlo[3] = {v[0], v[1], v[2]};
+          const float vhi[3] = {v[3], v[4], v[5]};
+          key[m] = rank_key(p[m], longest_axis(vlo, vhi), row0 + t[m] < n,
+                            t[m]);
+          sh.key[q] = key[m];
+        } else if (lane == 0) {
+#pragma unroll
+          for (int a = 0; a < 6; ++a) sh.block[q / 32][a] = v[a];
         }
-        sh.at[rank] = t;
+      }
+    }
+    if constexpr (kHalf == 32) {
+      __syncwarp();
+    } else {
+      consumer_sync();
+#pragma unroll
+      for (int m = 0; m < kMine; ++m) {
+        const int q = threadIdx.x + kThreads * m;
+        if (q < kOwn) {
+          const int b0 = q / kHalf * (kHalf / 32);
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            lo[a] = sh.block[b0][a];
+            hi[a] = sh.block[b0][3 + a];
+#pragma unroll
+            for (int b = 1; b < kHalf / 32; ++b) {
+              lo[a] = fminf(lo[a], sh.block[b0 + b][a]);
+              hi[a] = fmaxf(hi[a], sh.block[b0 + b][3 + a]);
+            }
+          }
+          key[m] = rank_key(p[m], longest_axis(lo, hi), row0 + t[m] < n,
+                            t[m]);
+          sh.key[q] = key[m];
+        }
+      }
+      consumer_sync();
+    }
+#pragma unroll
+    for (int m = 0; m < kMine; ++m) {
+      const int q = threadIdx.x + kThreads * m;
+      if (q < kOwn) {
+        const int h0 = q / kHalf * kHalf;
+        sh.at[h0 + keys_below<kHalf>(sh.key + h0, key[m])] = t[m];
       }
     }
     consumer_sync();
   }
 
-  // The item's own rows into registers, grouped, and each group's box.
+  // The item's own rows into registers, and the group's box.
   __device__ __forceinline__ void begin(const float4* __restrict__ pin,
                                         int row0, int n) {
-    if (row0 == row0_last) {
+    pending = 0;
 #pragma unroll
-      for (int g = 0; g < kCull; ++g) {
-#pragma unroll
-        for (int s = 0; s < kRg; ++s) a0[g][s] = a1[g][s] = a2[g][s] = 0.f;
-      }
-      return;
-    }
+    for (int s = 0; s < kRg; ++s) a0[s] = a1[s] = a2[s] = 0.f;
+    if (row0 == row0_last) return;
     row0_last = row0;
     if constexpr (kCull > 1) rank_rows(pin, row0, n);
-    Shared& sh = shared();
+    float v[6];
+    empty_box(v);
 #pragma unroll
-    for (int g = 0; g < kCull; ++g) {
+    for (int s = 0; s < kRg; ++s) {
+      const int row = row_at(rank_of(s));
+      me[s] = pin[row0 + row];
+      olam[s] = me[s].w + k.s_corr;
+      if (row0 + row < n) grow_box(v, me[s]);
+    }
+    warp_box(v);
+    if constexpr (kLean) {
+      if (lane == 0) {
 #pragma unroll
-      for (int s = 0; s < kRg; ++s) {
-        const int row = row_at(g * kGroupRows + 32 * s + lane);
-        me[g][s] = pin[row0 + row];
-        olam[g][s] = me[g][s].w + k.s_corr;
-        a0[g][s] = a1[g][s] = a2[g][s] = 0.f;
-        // the box of these 32 rows (block g * kRg + s), summed by one warp
-        const int b = g * kRg + s;
-        if (b % kWarps == warp) {
-          float v[6];
-          empty_box(v);
-          if (row0 + row < n) grow_box(v, me[g][s]);
-          warp_box(v);
-          if (lane == 0) {
+        for (int a = 0; a < 6; ++a) shared().box[warp][a] = v[a];
+      }
+      __syncwarp();
+    } else {
 #pragma unroll
-            for (int a = 0; a < 6; ++a) sh.block[b][a] = v[a];
-          }
-        }
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = v[a];
+        hi[a] = v[3 + a];
       }
     }
-    consumer_sync();  // the blocks' boxes, read by every tile's cull
   }
 
-  // the squared distance from candidate c to the box (lo, hi), each
-  // product and sum rounded apart (cull_survivors repeats it in plain
-  // torch)
+  // the squared distance from candidate c to the box, each product and
+  // sum rounded apart (cull_survivors repeats it in plain torch)
   static __device__ __forceinline__ float box_dist2(const float (&lo)[3],
                                                     const float (&hi)[3],
                                                     float4 c) {
@@ -304,20 +437,21 @@ struct WindowBody {
                      __fmul_rn(ez, ez));
   }
 
-  // kUnroll survivors of group g, c[0] .. c[kUnroll - 1], against the
-  // group's rows of this lane, as independent chains.
-  template <int kUnroll>
-  __device__ __forceinline__ void pairs(int g, const float4 (&c)[kUnroll]) {
+  // kU survivors against this lane's rows as independent chains; kMasked
+  // adds those of `ok` alone.
+  template <int kU, bool kMasked>
+  __device__ __forceinline__ void pairs(const float4 (&c)[kU], unsigned ok) {
 #pragma unroll
     for (int s = 0; s < kRg; ++s) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const float4 cj = c[u];
-        const float dx = me[g][s].x - cj.x;
-        const float dy = me[g][s].y - cj.y;
-        const float dz = me[g][s].z - cj.z;
+        const float dx = me[s].x - cj.x;
+        const float dy = me[s].y - cj.y;
+        const float dz = me[s].z - cj.z;
         float rd2 = dx * dx + dy * dy + dz * dz;
         rd2 = fmaxf(fminf(rd2, k.h2), k.eps);
+        const bool add = !kMasked || ((ok >> u) & 1u);
         // Each output has a pair body of its own. The lambda body keeps
         // this order (u before t2, both sums last): with the rho sum
         // moved above the rsqrt, nvcc gave the one-block-per-chunk
@@ -327,95 +461,109 @@ struct WindowBody {
           const float uu = k.h - rd2 * rsqrt_normal(rd2);
           const float t2 = tt * tt;
           const float u2 = uu * uu;
-          a0[g][s] += t2 * tt;
-          a1[g][s] += (u2 * u2) * rd2;
+          if (add) {
+            a0[s] += t2 * tt;
+            a1[s] += (u2 * u2) * rd2;
+          }
         } else if constexpr (kPass == Pass::kRho) {
           const float tt = k.h2 - rd2;
-          a0[g][s] += (tt * tt) * tt;
+          if (add) a0[s] += (tt * tt) * tt;
         } else {
           const float uu = k.h - rd2 * rsqrt_normal(rd2);
-          const float sc = (uu * uu) * (olam[g][s] + cj.w);
-          a0[g][s] += sc * dx;
-          a1[g][s] += sc * dy;
-          a2[g][s] += sc * dz;
+          const float sc = (uu * uu) * (olam[s] + cj.w);
+          if (add) {
+            a0[s] += sc * dx;
+            a1[s] += sc * dy;
+            a2[s] += sc * dz;
+          }
         }
       }
     }
   }
 
-  // The pair work of a staged tile. Warp w culls its runs of eight
-  // candidates (from 8 (w + 4 r)) against every group's box, one lane a
-  // candidate, and copies the survivors of each group into its own list in
-  // lane order (a ballot and popc prefix); then it runs the pair body of
-  // each survivor against its group's rows, kUnroll survivors at a time so
-  // that it has independent chains to issue, and the rest one at a time.
+  // One step: kU survivors for each of the warp's kSplit parts from list
+  // position s, those from `top` on masked.
+  template <int kU, bool kMasked>
+  __device__ __forceinline__ void step(const float4* list, int s, int top) {
+    const int part = lane / kWarpRows;
+    float4 c[kU];
+    unsigned ok = 0;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = s + kSplit * u + part;
+      ok |= unsigned(!kMasked || i < top) << u;
+      c[u] = list[!kMasked || i < top ? i : s];
+    }
+    pairs<kU, kMasked>(c, ok);
+  }
+
+  // The pair work of a staged tile. The warp culls its runs of eight
+  // candidates (from 8 (w + kShare r), w its place among the warps of its
+  // group) against its group's box, one lane a candidate, and appends the
+  // survivors to its list in lane order (a ballot and popc prefix; a
+  // dropped candidate goes to the list's last slot, which is never read);
+  // then it runs the pair body of the list's whole steps of kStep
+  // survivors against the group's rows, kUnroll at a time for each of the
+  // warp's kSplit parts, and carries the rest to the head of the list for
+  // the item's next tile (end takes the last).
   __device__ __forceinline__ void consume(const float4* cand,
                                           const unsigned char*, int cnt) {
-    constexpr int kUnroll = kRg >= 4 ? 1 : 4 / kRg;
-    Shared& sh = shared();
-    float4(&mine)[kCull][kCullPerWarp] = sh.list[warp];
+    float4* mine = shared().list[warp];
     const float h2c = __fmul_rn(k.h2, kCullMargin);
     const unsigned below = (1u << lane) - 1u;
-    float lo[kCull][3], hi[kCull][3];
+    int found = pending;
+    float blo[3], bhi[3];
 #pragma unroll
-    for (int g = 0; g < kCull; ++g) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        lo[g][a] = sh.block[g * kRg][a];
-        hi[g][a] = sh.block[g * kRg][3 + a];
-#pragma unroll
-        for (int s = 1; s < kRg; ++s) {
-          lo[g][a] = fminf(lo[g][a], sh.block[g * kRg + s][a]);
-          hi[g][a] = fmaxf(hi[g][a], sh.block[g * kRg + s][3 + a]);
-        }
-      }
+    for (int a = 0; a < 3; ++a) {
+      blo[a] = kLean ? shared().box[warp][a] : lo[a];
+      bhi[a] = kLean ? shared().box[warp][3 + a] : hi[a];
     }
-    int found[kCull];
-#pragma unroll
-    for (int g = 0; g < kCull; ++g) found[g] = 0;
     // eight lanes read eight neighbouring candidates (no bank conflict);
-    // the warps take turns at runs of eight
-#pragma unroll
-    for (int i0 = 0; i0 < kCullPerWarp; i0 += 32) {
-      const int j = (lane & 7) + 8 * (warp + kWarps * ((i0 + lane) >> 3));
-      const float4 c = cand[j < cnt ? j : 0];
-#pragma unroll
-      for (int g = 0; g < kCull; ++g) {
-        const bool keep = j < cnt && box_dist2(lo[g], hi[g], c) < h2c;
-        const unsigned m = __ballot_sync(0xffffffffu, keep);
-        if (keep) mine[g][found[g] + __popc(m & below)] = c;
-        found[g] += __popc(m);
-      }
+    // the warps of a group take turns at runs of eight. kLean leaves out
+    // the rounds past the tile's last candidate where the warp takes every
+    // candidate, in order.
+    const int rounds =
+        kLean && kShare == 1 ? min(kPerWarp, cnt + 31) : kPerWarp;
+#pragma unroll(kLean ? 2 : kPerWarp / 32)
+    for (int i0 = 0; i0 < rounds; i0 += 32) {
+      const int j = (lane & 7) +
+                    8 * (warp % kShare + kShare * ((i0 + lane) >> 3));
+      const bool in = j < cnt;
+      const float4 c = cand[in ? j : 0];
+      const bool keep = in & (box_dist2(blo, bhi, c) < h2c);
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      mine[keep ? found + __popc(m & below) : kDrop] = c;
+      found += __popc(m);
     }
     __syncwarp();
-#pragma unroll
-    for (int g = 0; g < kCull; ++g) {
-      survivors += found[g];
-      int s = 0;
-      for (; s + kUnroll <= found[g]; s += kUnroll) {
-        float4 c[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) c[u] = mine[g][s + u];
-        pairs(g, c);
-      }
-      if constexpr (kUnroll > 1) {
-        for (; s < found[g]; ++s) {
-          const float4 c[1] = {mine[g][s]};
-          pairs(g, c);
-        }
-      }
+    survivors += found - pending;
+    const int whole = found - found % kStep;
+    for (int s = 0; s < whole; s += kStep) {
+      step<kUnroll, false>(mine, s, 0);
+    }
+    pending = found - whole;
+    if (whole > 0) {
+      __syncwarp();  // every lane has read the head of the list
+      if (lane < pending) mine[lane] = mine[whole + lane];
     }
     __syncwarp();  // the list is read before the next tile's cull writes it
   }
 
-  __device__ __forceinline__ void end(float4* red) const {
+  // The item's last survivors (one masked step), then its row sums into
+  // red; with kSplit 2 the two halves' sums of a row first, added by a
+  // shuffle (a + b and b + a are the same float).
+  __device__ __forceinline__ void end(float4* red) {
+    if (pending > 0) step<kUnroll, true>(shared().list[warp], 0, pending);
 #pragma unroll
-    for (int g = 0; g < kCull; ++g) {
-#pragma unroll
-      for (int s = 0; s < kRg; ++s) {
-        const int row = row_at(g * kGroupRows + 32 * s + lane);
-        red[warp * kOwn + row] =
-            make_float4(a0[g][s], a1[g][s], a2[g][s], 0.f);
+    for (int s = 0; s < kRg; ++s) {
+      float4 sum = make_float4(a0[s], a1[s], a2[s], 0.f);
+      if constexpr (kSplit == 2) {
+        sum.x += __shfl_xor_sync(0xffffffffu, sum.x, 16);
+        sum.y += __shfl_xor_sync(0xffffffffu, sum.y, 16);
+        sum.z += __shfl_xor_sync(0xffffffffu, sum.z, 16);
+      }
+      if (lane < kWarpRows) {
+        red[warp % kShare * kOwn + row_at(rank_of(s))] = sum;
       }
     }
   }
@@ -425,8 +573,13 @@ struct WindowBody {
   }
 };
 
+// The blocks an SM that the registers are capped for: seven at own 64, as
+// many as the shared memory holds (56 registers a thread); eight, four and
+// three at own 32, 128 and 256, near the two-group kernels' occupancy,
+// which nvcc left alone gives up for registers (PERF.md, section 6).
 template <Pass kPass, int R>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kBlockThreads,
+                                  R == 1 ? 8 : (R == 2 ? 7 : (R == 4 ? 4 : 3)))
     window_kernel(const float4* __restrict__ pin, float4* __restrict__ pout,
                   const int* __restrict__ ranges,
                   const int* __restrict__ seg_prefix,

@@ -5,8 +5,10 @@ kernel (`csrc/pair_items.cuh`) splits each own-chunk's candidates into
 segments of at most `seg` candidates and runs one work item per (chunk,
 segment) on a persistent grid of four-warp blocks, the candidates
 streaming through a ring of `STAGES` shared-memory stages of `STAGE_LEN`
-rows. In the FP32 kernels (`csrc/pbf_window.cu`) each lane holds
-`own / 32` own rows and the four warps share each stage's candidates; in
+rows. In the FP32 kernels (`csrc/pbf_window.cu`) the own rows form
+`cull_groups` groups: from own 64 on, four, one a warp, each warp taking
+every candidate of a stage; at own 32, one, whose rows each warp holds
+while the four warps share each stage's candidates; in
 the tensor-core kernels (`csrc/pbf_tc.cu`) the warps split the own rows
 into m16 tiles, `TC_COL_GROUPS` of them splitting each stage's candidates
 instead, and the forms with an rd2 mma convert each stage into fragment
@@ -86,25 +88,33 @@ class KernelGeometry:
     @property
     def cull_groups(self) -> int:
         """Groups of own rows that the FP32 kernels cull each staged tile
-        against (`kCull` in csrc/pbf_window.cu): two halves of the chunk
-        where a lane holds two rows or more, else the whole chunk."""
-        return 2 if self.own >= 64 else 1
+        against (`kCull` in csrc/pbf_window.cu): four quarters of the chunk,
+        a k-d split of its rows in two cuts, from own 64 on, one a body
+        warp; else the whole chunk, which the four warps share."""
+        return 4 if self.own >= 64 else 1
 
     @property
     def smem_bytes(self) -> int:
         """Shared memory per block of the FP32 kernels. Dynamic: the ring of
         STAGES stages of float4 candidates and a float4 partial per own row
-        and warp, after the stages' barriers (`smem_bytes` in
-        csrc/pair_items.cuh). Static (`CullShared` in csrc/pbf_window.cu):
-        the rows' keys and ranks, the partial boxes, each warp's survivor
-        lists (a float4 per candidate of its share of a stage and cull
-        group) and the warps' survivor counts, with up to 16 bytes of
+        and warp that shares the rows, after the stages' barriers
+        (`smem_bytes` in csrc/pair_items.cuh). Static (`CullShared` in
+        csrc/pbf_window.cu): the rows' keys and ranks, the warps' partial
+        boxes and the boxes of 32 ranks, each warp's survivor list (a
+        float4 per candidate of its share of a stage, fewer than a step of
+        survivors carried over and a slot for the dropped), the box of each
+        warp's group and the warps' survivor counts, with up to 16 bytes of
         alignment."""
         g = self.cull_groups
+        share = WARPS // g
+        group_rows = self.own // g
+        warp_rows = min(32, group_rows)
+        rows = group_rows // warp_rows
+        step = 32 // warp_rows * (1 if rows >= 4 else 4 // rows)
         ranked = self.own if g > 1 else 4
-        static = (8 * ranked + 4 * 6 * (WARPS + self.own // 32)
-                  + 16 * g * STAGE_LEN + 4 * WARPS + 16)
-        return (_BAR_BYTES + 16 * (STAGES * STAGE_LEN + WARPS * self.own)
+        static = (8 * ranked + 4 * 6 * (2 * WARPS + self.own // 32)
+                  + 16 * WARPS * (STAGE_LEN // share + step) + 4 * WARPS + 16)
+        return (_BAR_BYTES + 16 * (STAGES * STAGE_LEN + share * self.own)
                 + static)
 
     @property

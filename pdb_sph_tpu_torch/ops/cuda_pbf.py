@@ -695,15 +695,41 @@ def _box(rows: torch.Tensor, ok: torch.Tensor):
             torch.where(ok, rows, -inf).amax(dim=-2))
 
 
+def _longest_axis(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(..., 3) boxes -> (...) int64: the first of the longest extents, as
+    `longest_axis` in csrc/pbf_window.cu picks it (fmaxf's NaN rule)."""
+    ext = hi - lo
+    axis = torch.where(ext[..., 1] > ext[..., 0], 1, 0)
+    return torch.where(ext[..., 2] > torch.fmax(ext[..., 0], ext[..., 1]), 2,
+                       axis)
+
+
+def _ranks(rows: torch.Tensor, valid: torch.Tensor, axis: torch.Tensor,
+           part: torch.Tensor) -> torch.Tensor:
+    """Each row's rank among the rows of its part of the chunk, (chunks,
+    own) int64, along its part's `axis` ((chunks, own) both): keys of the
+    coordinate's order whose low bits are the row, rows from n on last
+    (`rank_key` in csrc/pbf_window.cu)."""
+    own = rows.shape[1]
+    coord = rows.gather(2, axis[..., None])[..., 0]
+    key = torch.where(valid, _order_key(coord), 0xFFFFFFFF)
+    key = key & ~(own - 1) | torch.arange(own, device=rows.device)
+    same = part[:, None, :] == part[:, :, None]
+    return ((key[:, None, :] < key[:, :, None]) & same).sum(dim=-1)
+
+
 def cull_groups(cfg: SimConfig, p4: torch.Tensor, n: int):
     """(group (chunks, own) int64, lo (chunks, G, 3), hi (chunks, G, 3)):
     the FP32 kernels' split of each own-chunk's rows into G =
     cfg.geom.cull_groups groups, and each group's box over its rows below
-    n, as `begin` in csrc/pbf_window.cu makes them. With two groups the
-    rows are ranked by their coordinate along the longest axis of the
-    chunk's box (the first of equal extents), with keys of the float's
-    order whose low bits are the row, and rows from n on last; the first
-    own / 2 ranks are group 0."""
+    n, as `begin` in csrc/pbf_window.cu makes them. With four groups the
+    split is a k-d split in two cuts: the rows are ranked along the
+    longest axis of the chunk's box, and the first own / 2 ranks are half
+    0; then each half's rows are ranked along the longest axis of the
+    half's own box, and the first own / 4 of half h are group 2 h, the
+    rest group 2 h + 1. Each ranking takes keys of the float's order whose
+    low bits are the row, rows from n on last; an axis is the first of
+    the longest extents."""
     own = cfg.geom.own
     chunks = p4.shape[0] // own
     rows = p4[: chunks * own, :3].reshape(chunks, own, 3)
@@ -712,16 +738,15 @@ def cull_groups(cfg: SimConfig, p4: torch.Tensor, n: int):
     if cfg.geom.cull_groups == 1:
         return (torch.zeros_like(valid, dtype=torch.long), lo[:, None],
                 hi[:, None])
-    ext = hi - lo
-    axis = torch.where(ext[:, 1] > ext[:, 0], 1, 0)
-    axis = torch.where(ext[:, 2] > ext.gather(1, axis[:, None])[:, 0], 2,
-                       axis)
-    coord = rows.gather(2, axis[:, None, None].expand(chunks, own, 1))[..., 0]
-    key = torch.where(valid, _order_key(coord), 0xFFFFFFFF)
-    key = key & ~(own - 1) | torch.arange(own, device=p4.device)
-    rank = (key[:, None, :] < key[:, :, None]).sum(dim=-1)
-    group = (rank >= own // 2).long()
-    boxes = [_box(rows, valid & (group == g)) for g in (0, 1)]
+    whole = torch.zeros_like(valid, dtype=torch.long)
+    axis = _longest_axis(lo, hi)[:, None].expand(chunks, own)
+    half = (_ranks(rows, valid, axis, whole) >= own // 2).long()
+    boxes = [_box(rows, valid & (half == h)) for h in (0, 1)]
+    axis = _longest_axis(torch.stack([b[0] for b in boxes], 1),
+                         torch.stack([b[1] for b in boxes], 1)).gather(1,
+                                                                       half)
+    group = 2 * half + (_ranks(rows, valid, axis, half) >= own // 4).long()
+    boxes = [_box(rows, valid & (group == g)) for g in range(4)]
     return (group, torch.stack([b[0] for b in boxes], 1),
             torch.stack([b[1] for b in boxes], 1))
 

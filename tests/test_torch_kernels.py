@@ -7,10 +7,13 @@ the JAX Pallas kernels in interpret mode and the JAX dense oracle, on the
 same cell-sorted n = 300 standard-scene positions (300 % 64 != 0, so the
 last chunk mixes real and padding rows). Only the first n rows compare.
 
-The cull's plain torch mirror (`cuda_pbf.cull_survivors`) keeps every
-pair within h, here on the benchmark's dam spawn and on planted pairs at
-h and at a box corner. The tests marked `card` hold the culled kernels
-against the plain versions and the mirror on a card, with
+The cull's plain torch mirror (`cuda_pbf.cull_groups`,
+`cull_survivors`) keeps every pair within h, here on the benchmark's dam
+spawn and on planted pairs at h and at each group's box corners; its
+four groups are the k-d split the kernels make, and evaluate at least
+1.2x fewer pairs than two halves on the 80k spawn. The tests marked
+`card` hold the culled kernels against the plain versions and the mirror
+on a card, with
 
     python -m pytest --noconftest -p no:cacheprovider -o addopts="" \
         -m card tests/test_torch_kernels.py
@@ -275,26 +278,40 @@ def test_the_cull_keeps_every_pair_within_h_of_the_spawn(own):
     assert dropped == 0 and within > n
     evals = cuda_pbf.cull_pair_evals(cfg, p4, plan, n)
     assert kept <= evals < int(plan.n_candidates) * own
-    if own >= 64:  # two groups: the halves' boxes cut ~1.8x at this size
-        assert evals * 1.5 < int(plan.n_candidates) * own
+    if own >= 64:  # four groups: the quarters' boxes cut ~2.3x at this size
+        assert evals * 2 < int(plan.n_candidates) * own
 
 
 def test_the_cull_keeps_planted_pairs_at_h_and_at_a_box_corner():
-    """Rows fill a cube whose two far corners are rows; candidates sit at
-    h (1 + k 2^-23), k = -3 .. 3, from those corner rows, along an axis
-    and along the diagonal, each also one float32 step either way; and at
-    1.01 h from each box. Every pair within h survives its group's cull
+    """Rows fill four small cubes, one a group of the k-d split (the
+    chunk's longest axis is x, each half's y), whose two far corners are
+    rows; candidates sit at h (1 + k 2^-23), k = -3 .. 3, from each
+    group's corner rows, along an axis and along the diagonal, each also
+    one float32 step either way; and at 1.01 h from each group's box, past
+    both of its corners. Every pair within h survives its group's cull
     (the self pairs too), and the far candidates are dropped."""
     own, h = 64, 0.1
     cfg = dataclasses.replace(_bench_dam(64, own)[0], n=own)
+    groups = cfg.geom.cull_groups
     gen = torch.Generator().manual_seed(3)
-    lo, hi = 1.0, 1.06
-    rows = lo + (hi - lo) * torch.rand((own, 3), generator=gen)
-    rows[5] = lo
-    rows[40] = hi
+    side = 0.06
+    rows = torch.empty((own, 3), dtype=torch.float64)
+    corners = []
+    for g in range(groups):
+        lo = torch.tensor([1.0 + 0.5 * (g // 2), 1.0 + 0.3 * (g % 2), 1.0],
+                          dtype=torch.float64)
+        cube = lo + side * torch.rand((own // groups, 3), generator=gen,
+                                      dtype=torch.float64)
+        cube[0], cube[-1] = lo, lo + side
+        rows[g::groups] = cube  # the groups' rows interleaved in the chunk
+        corners += [(g, -1.0), (own - groups + g, 1.0)]
     rows = rows.float()
+    group, box_lo, box_hi = cuda_pbf.cull_groups(
+        cfg, torch.cat([rows, torch.zeros((own, 1))], 1), own)
+    assert torch.equal(group[0], torch.arange(own) % groups)
     cands = []
-    for corner, sign in ((rows[5], -1.0), (rows[40], 1.0)):
+    for row, sign in corners:
+        corner = rows[row]
         for k in range(-3, 4):
             reach = h * (1 + k * 2.0 ** -23)
             for step in (torch.eye(3, dtype=torch.float64),
@@ -302,9 +319,7 @@ def test_the_cull_keeps_planted_pairs_at_h_and_at_a_box_corner():
                 c = (corner.double() + sign * reach * step).float()
                 cands += [c, torch.nextafter(c, c + sign),
                           torch.nextafter(c, c - sign)]
-    _, box_lo, box_hi = cuda_pbf.cull_groups(
-        cfg, torch.cat([rows, torch.zeros((own, 1))], 1), own)
-    for g in (0, 1):
+    for g in range(groups):
         cands.append((box_lo[0, g] - 1.01 * h)[None])
         cands.append((box_hi[0, g] + 1.01 * h)[None])
     cands = torch.cat(cands)
@@ -324,7 +339,94 @@ def test_the_cull_keeps_planted_pairs_at_h_and_at_a_box_corner():
         keeps.append(next(cuda_pbf.cull_survivors(cfg, p4, plan,
                                                   own + m))[2][0])
     assert keeps[0][:, :own].any(dim=0).all()
-    assert not keeps[1][:, -4:].any()
+    assert not keeps[1][:, -2 * groups:].any()
+
+
+def _kd_groups_plain(rows, n):
+    """Chunk row -> group of one chunk's (own, 3) rows (rows from n on not
+    written), by Python sorts: the rows ordered by (written or not, the
+    coordinate along the longest axis of the written rows' box, the row),
+    cut at the middle; each half ordered likewise along the longest axis
+    of its own written rows' box, cut at its middle. With coordinates of
+    few mantissa bits the kernels' keys order them the same way."""
+    rows = rows.tolist()
+    own = len(rows)
+
+    def longest(part):
+        pts = [rows[t] for t in part if t < n]
+        ext = [max(p[a] for p in pts) - min(p[a] for p in pts)
+               for a in range(3)]
+        axis = 1 if ext[1] > ext[0] else 0
+        return 2 if ext[2] > max(ext[0], ext[1]) else axis
+
+    def ordered(part):
+        axis = longest(part)
+        return sorted(part, key=lambda t: (t >= n, rows[t][axis] if t < n
+                                           else 0.0, t))
+
+    first = ordered(range(own))
+    group = [0] * own
+    for h, half in enumerate((first[: own // 2], first[own // 2:])):
+        for rank, t in enumerate(ordered(half)):
+            group[t] = 2 * h + rank // (own // 4)
+    return group
+
+
+def test_the_four_groups_are_the_k_d_split_of_the_chunk():
+    """Two chunks of 64 rows on a grid of 1/16 (many ties): rows of small
+    x span [0, 0.75] in y, the others [0, 0.75] in z, so the chunk is cut
+    along x, one half along y and the other along z; in the second chunk
+    the last 12 rows are past n, each at z 5 (were they boxed, z would be
+    every cut's axis). The mirror's groups are the plain sorts' (ties by
+    the row), a quarter of the ranks each, 16 / 16 / 16 / 16, rows past n
+    last in the last group, and each box the group's written rows'."""
+    own = 64
+    cfg = dataclasses.replace(_bench_dam(64, own)[0], n=2 * own - 12)
+    assert cfg.geom.cull_groups == 4
+    gen = torch.Generator().manual_seed(11)
+    grid = torch.randint(0, 5, (2 * own, 3), generator=gen).double() / 16
+    left = torch.rand((2 * own,), generator=gen) < 0.5
+    x = torch.where(left, 1.0, 2.0) + grid[:, 0]
+    y = 1.0 + torch.where(left, 3 * grid[:, 1], grid[:, 1])
+    z = 1.0 + torch.where(left, grid[:, 2], 3 * grid[:, 2])
+    rows = torch.stack([x, y, z], 1).float()
+    rows[cfg.n:, 2] = 5.0
+    p4 = torch.cat([rows, torch.zeros((2 * own, 1))], 1)
+    group, lo, hi = cuda_pbf.cull_groups(cfg, p4, cfg.n)
+    for c in range(2):
+        n_c = min(own, cfg.n - c * own)
+        chunk = rows[c * own:(c + 1) * own]
+        assert group[c].tolist() == _kd_groups_plain(chunk, n_c)
+        assert torch.equal(torch.bincount(group[c], minlength=4),
+                           torch.full((4,), own // 4))
+        assert (group[c, n_c:] == 3).all()
+        for g in range(4):
+            mine = chunk[:n_c][group[c, :n_c] == g]
+            assert torch.equal(lo[c, g], mine.amin(0))
+            assert torch.equal(hi[c, g], mine.amax(0))
+
+
+def test_four_groups_cut_the_evaluations_of_the_80k_spawn():
+    """On the benchmark's 80k dam spawn the four groups evaluate at least
+    1.2x fewer pairs than two groups, the halves of the first cut with
+    their own boxes, on the same plan."""
+    n, own = 80_000, 64
+    cfg, p4, plan = _bench_dam(n, own)
+    four = cuda_pbf.cull_pair_evals(cfg, p4, plan, n)
+    group = cuda_pbf.cull_groups(cfg, p4, n)[0]
+    half = group // 2
+    rows = p4[:, :3].view(-1, own, 3)
+    valid = (torch.arange(p4.shape[0]) < n).view(-1, own, 1)
+    inf = torch.tensor(float("inf"))
+    lo = torch.stack([torch.where(valid & (half == h)[..., None], rows,
+                                  inf).amin(1) for h in (0, 1)], 1)
+    hi = torch.stack([torch.where(valid & (half == h)[..., None], rows,
+                                  -inf).amax(1) for h in (0, 1)], 1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_pbf, "cull_groups", lambda *a: (half, lo, hi))
+        two = sum(int(keep.sum()) for _, _, keep, _, _ in
+                  cuda_pbf.cull_survivors(cfg, p4, plan, n)) * (own // 2)
+    assert two >= 1.2 * four
 
 
 def test_the_step_gives_its_counter_to_the_density_passes(monkeypatch):
@@ -357,29 +459,31 @@ def test_the_step_gives_its_counter_to_the_density_passes(monkeypatch):
 # the culled kernels on a card
 # ---------------------------------------------------------------------------
 
-# (scene rows: n, wall, the step of the dam break the state is taken at)
-CARD_STATES = {"dam80k@60": (80_000, None, 60),
-               "dam80k@480": (80_000, None, 480),
-               "dam1m@60": (1_000_000, 4.64, 60)}
+# (scene, n, wall, the step of the scene the state is taken at)
+CARD_STATES = {"dam80k@60": ("dam_break", 80_000, None, 60),
+               "dam80k@480": ("dam_break", 80_000, None, 480),
+               "dam1m@60": ("dam_break", 1_000_000, 4.64, 60),
+               "blowup1m@8": ("blowup", 1_000_000, 4.64, 8)}
 
 
 @pytest.fixture(scope="module")
 def card_states():
     """name -> the state's positions on the card, made on first use by the
-    port's graph rollout from the seed-0 dam spawn; or skip."""
+    port's graph rollout from the scene's seed-0 spawn; or skip."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
-    from pdb_sph_tpu_torch import default_config, make_rollout, spawn
+    from pdb_sph_tpu_torch import (blowup_config, default_config,
+                                   make_rollout, spawn)
 
     made = {}
 
     def get(name):
         if name not in made:
-            n, wall, steps = CARD_STATES[name]
-            cfg = default_config(n=n, **({} if wall is None
-                                         else {"wall": wall}))
+            scene, n, wall, steps = CARD_STATES[name]
+            config = blowup_config if scene == "blowup" else default_config
+            cfg = config(n=n, **({} if wall is None else {"wall": wall}))
             dev = torch.device("cuda", 0)
-            st = spawn(cfg, "dam_break", seed=0, device=dev)
+            st = spawn(cfg, scene, seed=0, device=dev)
             made[name] = (cfg, make_rollout(cfg, "window", steps,
                                             device=dev)(st).x)
         return made[name]
